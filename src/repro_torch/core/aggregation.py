@@ -6,11 +6,11 @@ implemented faithfully (``pairwise_average``), alongside the principled
 weighted FedAvg (McMahan et al., 2017) and a trimmed mean for robustness.
 
 Pairwise and trimmed mean operate on parameter trees; FedAvg runs over the
-flat update stack the orchestrator builds (:func:`fedavg_stack`), and
-runs on the hand-written fedavg kernel
-(:mod:`repro_torch.kernels.fedavg`) by default; that kernel folds the
-clients in the same order, with the same float32 rounding, as the numpy
-path, so both backends give the same bits.
+flat update stack the orchestrator builds (:func:`fedavg_stack`, and
+:func:`weighted_sum_stack` for the delta-domain mean), and runs on the
+hand-written fedavg kernel (:mod:`repro_torch.kernels.fedavg`) by default;
+that kernel folds the clients in the same order, with the same float32
+rounding, as the numpy path, so both backends give the same bits.
 """
 
 from __future__ import annotations
@@ -43,11 +43,26 @@ def fedavg_stack(stack: np.ndarray,
                  weights: Optional[Sequence[float]] = None,
                  backend: str = "kernel", *,
                  device: _device.DeviceLike | None = None) -> np.ndarray:
-    """Weighted FedAvg over a flat update stack ``(K, P) -> (P,)``.
+    """Weighted FedAvg over a flat update stack ``(K, P) -> (P,)``: the
+    weights normalized on the host in float32 (``w / w.sum()``), then
+    :func:`weighted_sum_stack`."""
+    stack = np.asarray(stack, dtype=np.float32)
+    if weights is None:
+        weights = [1.0] * max(1, stack.shape[0])
+    w = np.asarray(weights, dtype=np.float32)
+    return weighted_sum_stack(stack, w / w.sum(), backend, device=device)
 
-    The weights are normalized on the host in float32 (``w / w.sum()``).
-    ``"numpy"`` then accumulates ``acc += w_i * row_i`` in client order on
-    the host; ``"kernel"`` (the default) runs the same fold through
+
+def weighted_sum_stack(stack: np.ndarray, weights: Sequence[float],
+                       backend: str = "kernel", *,
+                       device: _device.DeviceLike | None = None
+                       ) -> np.ndarray:
+    """``sum_k weights[k] * stack[k]`` over a flat update stack
+    ``(K, P) -> (P,)``, folded in row order from zero as separate float32
+    multiplies and adds.
+
+    ``"numpy"`` accumulates ``acc += w_i * row_i`` on the host;
+    ``"kernel"`` (the default) runs the same fold through
     :func:`repro_torch.kernels.fedavg.ops.fedavg` on ``device`` (the
     package default when None): the CUDA kernel on ``cuda``, its plain
     PyTorch version on ``cpu``.  Both give the same bits.
@@ -59,10 +74,7 @@ def fedavg_stack(stack: np.ndarray,
     if backend not in FEDAVG_BACKENDS:
         raise ValueError(f"unknown fedavg backend {backend!r}; "
                          f"one of {FEDAVG_BACKENDS}")
-    if weights is None:
-        weights = [1.0] * stack.shape[0]
     w = np.asarray(weights, dtype=np.float32)
-    w = w / w.sum()
     if backend == "kernel":
         dev = _device.resolve(device)
         out = fedavg_ops.fedavg(

@@ -4,15 +4,16 @@
   ``make_model`` / ``available_models``) that trains one client as a
   per-client callable (:meth:`ClientModel.train_fn`, what
   :class:`~repro_torch.core.server.FLClient` runs) over a flat parameter
-  vector on the device (:meth:`ClientModel.train_flat`).  Built-in:
-  ``"mlp"`` (the paper's MNIST MLP — ``repro_torch.models.mlp`` over
-  ``repro_torch.data.mnist`` non-IID dirichlet shards).
+  vector on the device (:meth:`ClientModel.train_flat`).  Built-ins:
+  ``"consensus"`` (the analytic quadratic objective the fleet benchmarks
+  use) and ``"mlp"`` (the paper's MNIST MLP — ``repro_torch.models.mlp``
+  over ``repro_torch.data.mnist`` non-IID dirichlet shards).
 * :class:`TrainBackend` — how a batch of pending training steps executes
   (``register_train_backend`` / ``make_train_backend``): ``"python"``
   loops the per-client callables.
 
-The reference's ``consensus`` model and its ``vmap``/``shard`` backends
-arrive in a later slice of the port.
+The reference's ``vmap``/``shard`` backends (and the ``BatchTrainer`` that
+feeds them) arrive in a later slice of the port.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import abc
 from typing import Any, Callable
 
 import numpy as np
+import torch
 
 from repro_torch.core.packetizer import flatten_to_vector, unflatten_from_vector
 
@@ -91,6 +93,49 @@ def make_model(name: str, n_clients: int, *, seed: int = 0,
 
 def available_models() -> list[str]:
     return sorted(_MODELS)
+
+
+# --------------------------------------------------------------------------
+# Built-in model: the analytic consensus objective
+# --------------------------------------------------------------------------
+class ConsensusModel(ClientModel):
+    """:class:`~repro_torch.core.fleet.ConsensusObjective` as a registered
+    model.
+
+    The python path delegates to the objective's own ``train_fn`` — the
+    numpy fleet workload, bit-identical to the reference's — while
+    :meth:`train_flat` expresses the same ``w + lr * (c_k - w)`` step over
+    a tensor.
+    """
+
+    name = "consensus"
+
+    def __init__(self, n_clients: int, *, seed: int = 0,
+                 n_params: int = 1024, lr: float = 0.5,
+                 heterogeneity: float = 0.1):
+        from repro_torch.core.fleet import ConsensusObjective
+        super().__init__(n_clients, seed=seed)
+        self.objective = ConsensusObjective(
+            n_clients, n_params, seed=seed, lr=lr, heterogeneity=heterogeneity)
+
+    def init_params(self) -> Any:
+        return self.objective.init_params()
+
+    def loss(self, params: Any) -> float:
+        return self.objective.loss(params)
+
+    def train_fn(self, i: int, profile: Any = None) -> Callable:
+        return self.objective.train_fn(i, profile)
+
+    def train_flat(self, vec, client_idx, round_idx):
+        target = torch.from_numpy(
+            self.objective.targets[client_idx]).to(vec.device)
+        w = vec.to(torch.float32)
+        new = w + self.objective.lr * (target - w)
+        return new, {"local_gap": torch.mean((w - target) ** 2)}
+
+
+register_model("consensus", ConsensusModel)
 
 
 def _mlp_factory(n_clients: int, *, seed: int = 0, **kwargs) -> ClientModel:

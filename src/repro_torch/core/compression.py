@@ -2,7 +2,8 @@
 
 The paper hex-encodes each weight before packetizing (lossless, 2x
 inflation).  This keeps that as the faithful codec next to raw bytes
-(lossless, 1x) and blockwise int8 quantization (4x smaller, lossy).
+(lossless, 1x), blockwise int8 quantization (4x smaller, lossy) and top-k
+sparsification.
 
 These classes define the **headerless wire layouts** that
 ``TransportConfig(codec=...)`` has always produced; the composable wire
@@ -13,8 +14,9 @@ pipeline (byte-identical on this path) and composes them with
 All codecs operate on a flat float32 vector in numpy, so the transport
 layer never needs a device.  ``quantize_int8_batch`` /
 ``dequantize_int8_batch`` are the host oracle the CUDA quantize kernels
-(``repro_torch.kernels.quantize``) equal bit for bit.  The ``topk`` codec
-arrives with its kernel in a later slice of the port.
+(``repro_torch.kernels.quantize``) equal bit for bit; ``topk_sparsify``
+picks the kept indices on the host, and the ``topk`` wire stage moves the
+values with the CUDA top-k kernels (``repro_torch.kernels.topk``).
 """
 
 from __future__ import annotations
@@ -27,6 +29,14 @@ import numpy as np
 
 _U32 = struct.Struct("!I")
 _U64 = struct.Struct("!Q")
+
+#: Upper bound on a *declared* (wire-supplied) vector length a decoder will
+#: allocate for.  The sparse formats size their output from a header field,
+#: not from the bytes actually present, so without a cap one crafted
+#: payload can demand a u32-limit (~17 GiB) zero vector.  2**28 params
+#: (1 GiB of float32) is far above any model this simulator ships; raise it
+#: module-wide if you legitimately need more.
+MAX_DECODE_PARAMS = 1 << 28
 
 
 class Codec:
@@ -166,8 +176,66 @@ class Int8Codec(Codec):
         return dequantize_int8(q, scales.astype(np.float32), n, block)
 
 
+# --------------------------------------------------------------------------
+# Top-k sparsification (delta transmission) — beyond-paper compression.
+# --------------------------------------------------------------------------
+def topk_indices(vec: np.ndarray, k: int) -> np.ndarray:
+    """The sorted u32 indices of the ``k`` largest-|x| entries of ``vec``
+    (the selection half of :func:`topk_sparsify`)."""
+    vec = np.asarray(vec, dtype=np.float32)
+    k = min(k, vec.size)
+    if k <= 0:
+        # argpartition's -k would select the WHOLE array for k=0.
+        return np.zeros(0, dtype=np.uint32)
+    idx = np.argpartition(np.abs(vec), -k)[-k:].astype(np.uint32)
+    idx.sort()
+    return idx
+
+
+def topk_sparsify(vec: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
+    vec = np.asarray(vec, dtype=np.float32)
+    idx = topk_indices(vec, k)
+    return idx, vec[idx]
+
+
+@dataclasses.dataclass
+class TopKCodec(Codec):
+    """Keep the k largest-magnitude entries. Wire: n(u64) k(u32) | idx u32[k]
+    | vals f32[k]. Pair with the ``ef`` wire stage (residual error
+    feedback, ``repro_torch.core.wire``) for convergence."""
+
+    k_fraction: float = 0.01
+    name = "topk"
+    lossless = False
+
+    def encode(self, vec: np.ndarray) -> bytes:
+        vec = np.asarray(vec, dtype=np.float32)
+        k = min(vec.size, max(1, int(vec.size * self.k_fraction)))
+        idx, vals = topk_sparsify(vec, k)
+        # Header k is the ACTUAL entry count: for an empty (or size < k)
+        # vector, packing the requested k would make decode read past the
+        # buffer.
+        return (_U64.pack(vec.size) + _U32.pack(idx.size)
+                + idx.astype("<u4").tobytes() + vals.astype("<f4").tobytes())
+
+    def decode(self, data: bytes) -> np.ndarray:
+        n = _U64.unpack_from(data, 0)[0]
+        if n > MAX_DECODE_PARAMS:
+            # The output is sized from this wire-supplied field, so it must
+            # be bounded before np.zeros(n) (u32 indices also cannot
+            # address beyond 2**32 by construction).
+            raise ValueError(f"topk n={n} exceeds MAX_DECODE_PARAMS "
+                             f"({MAX_DECODE_PARAMS})")
+        k = _U32.unpack_from(data, 8)[0]
+        idx = np.frombuffer(data, dtype="<u4", count=k, offset=12)
+        vals = np.frombuffer(data, dtype="<f4", count=k, offset=12 + 4 * k)
+        out = np.zeros(n, dtype=np.float32)
+        out[idx] = vals
+        return out
+
+
 CODECS: dict[str, type] = {
-    "raw": RawCodec, "hex": HexCodec, "int8": Int8Codec,
+    "raw": RawCodec, "hex": HexCodec, "int8": Int8Codec, "topk": TopKCodec,
 }
 
 

@@ -915,9 +915,13 @@ class ServerCore:
             return
         template = self.global_params
         if self.uplink_pipeline.caps.delta_domain:
-            vecs = [v for v, _ in contribs]
             ws = np.asarray([w for _, w in contribs], dtype=np.float32)
-            mean_delta = sum(w * v for v, w in zip(vecs, ws)) / ws.sum()
+            # sum(w * v) / sum(w): the fold from zero in arrival order is
+            # the fedavg kernel's with the raw weights, and the division
+            # stays on the host, so the mean keeps the reference's bits.
+            mean_delta = agg.weighted_sum_stack(
+                np.stack([v for v, _ in contribs]), ws,
+                backend=self.cfg.aggregation_backend) / ws.sum()
             delta_tree = unflatten_from_vector(
                 mean_delta.astype(np.float32), template)
             self.global_params = agg.apply_delta(

@@ -42,27 +42,10 @@ from repro_torch.core.mudp import MudpReceiver, MudpSender
 from repro_torch.core.packets import Packet
 from repro_torch.core.packetizer import DEFAULT_MTU, reassemble
 from repro_torch.core.simulator import Node, Simulator
+from repro_torch.core.tcp import TcpReceiver, TcpSender
+from repro_torch.core.udp import UdpReceiver, UdpSender, reassemble_partial
 from repro_torch.core.wire import (WireError, parse_pipeline,
                                    using_batch_backend)
-
-
-def reassemble_partial(packets: dict[int, Packet], total: int) -> bytes:
-    """Best-effort reconstruction with zero-filled gaps (UDP baseline).
-
-    Chunk size is inferred from any non-final packet (all equal by
-    construction); a missing tail is sized the same way.
-    """
-    if not packets:
-        return b""
-    sizes = [len(p.payload) for s, p in packets.items() if s != total]
-    chunk = max(sizes) if sizes else len(packets[next(iter(packets))].payload)
-    out = []
-    for seq in range(1, total + 1):
-        if seq in packets:
-            out.append(packets[seq].payload)
-        else:   # a gap, or an unknown-length missing tail: a full chunk
-            out.append(b"\x00" * chunk)
-    return b"".join(out)
 
 
 # --------------------------------------------------------------------------
@@ -126,7 +109,7 @@ class TransportConfig:
     Wire plane: ``codec`` (+ ``codec_kwargs``) is the legacy single-stage
     form — headerless, byte-identical to the historical formats.
     ``uplink`` / ``downlink`` are composed pipeline specs
-    (``repro_torch.core.wire``, e.g. ``"delta|ef|int8(1024)"``); when
+    (``repro_torch.core.wire``, e.g. ``"delta|ef|topk(0.01)|int8(1024)"``); when
     set, that direction ships **self-describing** payloads (a versioned
     WireHeader the receiver decodes from, no out-of-band config) and
     ``codec`` is ignored for it.  Each direction is independent — an
@@ -134,7 +117,7 @@ class TransportConfig:
     """
 
     kind: str = "mudp"                  # any name in available_transports()
-    codec: str = "raw"                  # raw | hex | int8
+    codec: str = "raw"                  # raw | hex | int8 | topk
     codec_kwargs: dict = dataclasses.field(default_factory=dict)
     uplink: Optional[str] = None        # pipeline spec, client -> server
     downlink: Optional[str] = None      # pipeline spec, server -> client
@@ -212,8 +195,10 @@ class Transport(abc.ABC):
 # --------------------------------------------------------------------------
 # Registry (the make_codec idiom, with explicit registration)
 # --------------------------------------------------------------------------
-# The port's one built-in, mudp, registers at the bottom of this module;
-# the reference's udp, tcp and mudp+fec arrive in later slices.
+# The three built-ins register at the bottom of this module; mudp+fec
+# registers when repro_torch.core.fec is imported, which the
+# repro_torch.core package __init__ does eagerly (it cannot be imported
+# here: fec imports this module for the public API).
 _REGISTRY: dict[str, Callable[[], Transport]] = {}
 
 
@@ -263,6 +248,15 @@ def adapt_full_delivery(on_deliver: DeliverFn):
     return _cb
 
 
+def adapt_partial_delivery(on_deliver: DeliverFn):
+    """Adapt the best-effort 4-arg callback (addr, txn, packets, total)."""
+    def _cb(sender_addr: str, txn: int, packets: dict[int, Packet],
+            total: int) -> None:
+        complete = len(packets) == total
+        on_deliver(Delivery(sender_addr, txn, packets, total, complete))
+    return _cb
+
+
 class MudpTransport(Transport):
     """The paper's Modified UDP: NACK-driven selective repeat (§IV.B)."""
 
@@ -284,4 +278,42 @@ class MudpTransport(Transport):
                             on_deliver=adapt_full_delivery(on_deliver))
 
 
+class UdpTransport(Transport):
+    """Plain UDP baseline: fire-and-forget, delivers whatever arrived."""
+
+    name = "udp"
+    caps = TransportCaps(reliable=False, partial_delivery=True,
+                         has_handshake=False, supports_fail_cb=False,
+                         concurrent_txns=True)
+
+    def create_sender(self, sim, src, dst, packets, cfg, *,
+                      on_complete=None, on_fail=None):
+        # No retry budget to exhaust -> on_fail can never fire (see caps).
+        return UdpSender(sim, src, dst, packets, on_complete=on_complete)
+
+    def create_receiver(self, sim, node, cfg, on_deliver):
+        return UdpReceiver(sim, node, deadline_ns=cfg.udp_deadline_ns,
+                           on_deliver=adapt_partial_delivery(on_deliver))
+
+
+class TcpTransport(Transport):
+    """Reno-lite TCP baseline: handshake + cumulative ACKs + windowing."""
+
+    name = "tcp"
+    caps = TransportCaps(reliable=True, partial_delivery=False,
+                         has_handshake=True, supports_fail_cb=True,
+                         concurrent_txns=True)
+
+    def create_sender(self, sim, src, dst, packets, cfg, *,
+                      on_complete=None, on_fail=None):
+        return TcpSender(sim, src, dst, packets, rto_ns=cfg.timeout_ns,
+                         on_complete=on_complete, on_fail=on_fail)
+
+    def create_receiver(self, sim, node, cfg, on_deliver):
+        return TcpReceiver(sim, node,
+                           on_deliver=adapt_full_delivery(on_deliver))
+
+
 register_transport("mudp", MudpTransport)
+register_transport("udp", UdpTransport)
+register_transport("tcp", TcpTransport)

@@ -8,12 +8,11 @@ to shrink it (sparsify, quantize), and *how the receiver knows what it got*
 * :class:`Stage` — one reversible transform over a flat float32 vector with
   a per-endpoint/per-direction mutable state slot.  Stages compose:
   ``delta`` (ship trained - received), ``ef`` (error-feedback residual,
-  wrapping everything downstream of it), ``int8(b)`` (blockwise absmax
-  quantization), ``raw`` / ``hex`` (terminal serializers), ``crc``
-  (end-to-end body checksum).  The reference's ``topk(f)`` stage arrives
-  with its kernel in a later slice of the port.
+  wrapping everything downstream of it), ``topk(f)`` (sparsify to values +
+  index sidecar), ``int8(b)`` (blockwise absmax quantization), ``raw`` /
+  ``hex`` (terminal serializers), ``crc`` (end-to-end body checksum).
 * :class:`Pipeline` — an ordered stage list parsed from a ``|``-separated
-  spec string (``"delta|ef|int8(1024)"``) with **derived**
+  spec string (``"delta|ef|topk(0.01)|int8(1024)"``) with **derived**
   capability flags (:class:`PipelineCaps`: lossless, stateful, estimated
   wire ratio, delta-domain) so callers branch on what a pipeline guarantees,
   never on its spelling.
@@ -43,8 +42,9 @@ the header alone possible.
 
 **Batch plane.**  Every stage also exposes ``encode_batch`` /
 ``decode_batch`` over stacked ``(N, P)`` matrices (base-class fallbacks
-loop; the built-ins override with vectorized numpy, and ``int8`` with the
-CUDA quantize kernels — see :func:`set_batch_backend`).  :meth:`Pipeline.
+loop; the built-ins override with vectorized numpy, and ``int8`` and
+``topk`` with the CUDA quantize and top-k kernels — see
+:func:`set_batch_backend`).  :meth:`Pipeline.
 encode_batch`, :meth:`Pipeline.decode_batch` and
 :func:`decode_payload_batch` walk all N clients through each stage in one
 call: per-client state (delta refs, EF residuals) is gathered into an
@@ -69,11 +69,13 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
-from repro_torch.core.compression import (HexCodec, Int8Codec, RawCodec,
+from repro_torch.core.compression import (MAX_DECODE_PARAMS, HexCodec,
+                                          Int8Codec, RawCodec, TopKCodec,
                                           dequantize_int8_batch,
-                                          quantize_int8_batch)
+                                          quantize_int8_batch, topk_indices)
 from repro_torch.kernels import KernelError
 from repro_torch.kernels.quantize import ops as _quant_ops
+from repro_torch.kernels.topk import ops as _topk_ops
 
 _U16 = struct.Struct("!H")
 _U32 = struct.Struct("!I")
@@ -196,7 +198,7 @@ class Stage(abc.ABC):
         return self.name
 
     # -- legacy (headerless) terminal serialization -------------------------
-    # Implemented only by the classic codec stages (raw/hex/int8):
+    # Implemented only by the classic codec stages (raw/hex/int8/topk):
     # byte-identical to the historical repro_torch.core.compression wire formats.
     legacy_codec = None   # a compression.Codec instance, or None
 
@@ -241,7 +243,7 @@ class Stage(abc.ABC):
 
         Callers only attempt batch decode on groups that are already
         uniform in spec, body dtype and body length; an override must
-        still verify the per-item *params* agree (e.g. one int8 block size for
+        still verify the per-item *params* agree (e.g. one topk count for
         the whole group) and raise :class:`WireDecodeError` otherwise —
         the caller then isolates the odd item via per-item decode.
         """
@@ -282,7 +284,7 @@ def _stack_rows(rows: Sequence[np.ndarray], what: str) -> np.ndarray:
 
 
 # --------------------------------------------------------------------------
-# Batch backend: the CUDA quantize kernels (default) or vectorized numpy
+# Batch backend: the CUDA stage kernels (default) or vectorized numpy
 # --------------------------------------------------------------------------
 WIRE_BATCH_BACKENDS = ("numpy", "kernel")
 
@@ -302,19 +304,23 @@ def _batch_chunk_rows(row_elems: int) -> int:
 
 
 def batch_backend() -> str:
-    """The active ``int8`` stage backend (``"kernel"`` or ``"numpy"``)."""
+    """The active ``int8`` / ``topk`` stage backend (``"kernel"`` or
+    ``"numpy"``)."""
     return _BATCH_BACKEND
 
 
 def set_batch_backend(name: str) -> str:
-    """Select the ``int8`` stage backend; returns the previous one.
+    """Select the ``int8`` / ``topk`` stage backend; returns the previous.
 
     ``"kernel"`` (the default) runs int8 quantize/dequantize through
-    :mod:`repro_torch.kernels.quantize` on the package's current device
+    :mod:`repro_torch.kernels.quantize` and the top-k value gather (encode)
+    and scatter (decode) through :mod:`repro_torch.kernels.topk`, per item
+    and in batch, on the package's current device
     (:mod:`repro_torch.device`): the hand-written CUDA kernels on
     ``cuda``, their plain PyTorch versions on ``cpu``.  The block size is
-    passed to the kernel, so every ``int8(b)`` reaches it.  ``"numpy"`` is
-    the host codec in :mod:`repro_torch.core.compression`.  Both are bit
+    passed to the kernel, so every ``int8(b)`` reaches it.  Top-k index
+    *selection* stays numpy on the host under both backends.  ``"numpy"``
+    is the host codec in :mod:`repro_torch.core.compression`.  Both are bit
     for bit the same, so flipping the backend never changes a byte.
     """
     global _BATCH_BACKEND
@@ -348,7 +354,7 @@ def _kernel_failure(what: str):
     except KernelError:
         raise
     except Exception as e:
-        raise KernelError(f"int8 {what} on the {_BATCH_BACKEND!r} backend "
+        raise KernelError(f"{what} on the {_BATCH_BACKEND!r} backend "
                           f"failed: {type(e).__name__}: {e}") from e
 
 
@@ -368,7 +374,7 @@ def _quantize_rows(mat: np.ndarray, block: int
     active backend: ``(q (N, nb*block) int8, scales (N, nb) f32)``."""
     if _BATCH_BACKEND == "numpy" or mat.size == 0:
         return quantize_int8_batch(mat, block)
-    with _kernel_failure("quantize"):
+    with _kernel_failure("int8 quantize"):
         q, scales = _quant_ops.quantize(_on_device(mat, np.float32), block)
         return q.cpu().numpy(), scales.cpu().numpy()
 
@@ -378,9 +384,39 @@ def _dequantize_rows(q: np.ndarray, scales: np.ndarray, n: int,
     """Inverse of :func:`_quantize_rows`: ``(N, n)`` float32."""
     if _BATCH_BACKEND == "numpy" or q.size == 0:
         return dequantize_int8_batch(q, scales, n, block)
-    with _kernel_failure("dequantize"):
+    with _kernel_failure("int8 dequantize"):
         out = _quant_ops.dequantize(_on_device(q, np.int8),
                                     _on_device(scales, np.float32), n, block)
+        return out.cpu().numpy()
+
+
+def _gather_rows(mat: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    """``mat[r, idx[r, k]]`` of an ``(N, P)`` float32 matrix at ``(N, K)``
+    u32 indices below ``P``, on the active backend."""
+    if _BATCH_BACKEND == "numpy" or idx.size == 0:
+        return np.take_along_axis(mat, idx.astype(np.int64), axis=1)
+    with _kernel_failure("topk gather"):
+        out = _topk_ops.topk_gather(_on_device(mat, np.float32),
+                                    _on_device(idx, np.int32))
+        return out.cpu().numpy()
+
+
+def _scatter_rows(idx: np.ndarray, vals: np.ndarray, n: int) -> np.ndarray:
+    """Dense ``(N, n)`` float32 rows, zero except ``vals`` at ``idx`` (u32,
+    already checked ``< n <= MAX_DECODE_PARAMS``, so they fit int32).  A
+    duplicate index resolves last-wins on both backends, like the per-item
+    ``out[idx] = vals``."""
+    n_items, k = idx.shape
+    if _BATCH_BACKEND == "numpy" or idx.size == 0:
+        out = np.zeros((n_items, n), dtype=np.float32)
+        # Flat fancy assignment: duplicate indices resolve last-wins in
+        # row-major order, exactly like the per-item out[idx] = vals.
+        rows = np.repeat(np.arange(n_items), k)
+        out[rows, idx.reshape(-1).astype(np.int64)] = vals.reshape(-1)
+        return out
+    with _kernel_failure("topk scatter"):
+        out = _topk_ops.topk_scatter(_on_device(idx, np.int32),
+                                     _on_device(vals, np.float32), n)
         return out.cpu().numpy()
 
 
@@ -510,8 +546,121 @@ class ErrorFeedbackStage(Stage):
 
 
 # --------------------------------------------------------------------------
-# Compression stage: int8
+# Compression stages: topk, int8
 # --------------------------------------------------------------------------
+class TopKStage(Stage):
+    """Keep the ``k = max(1, k_fraction * n)`` largest-|x| entries.
+
+    Encode emits the kept *values* as the flowing vector (so a downstream
+    quantizer compresses them further) and ``n`` + the sorted indices as
+    params.  Wire cost ≈ ``8 bytes/kept`` alone, less when composed.
+    Index selection is numpy on the host; the value gather (encode) and
+    scatter (decode) run on the backend chosen by :func:`set_batch_backend`,
+    per item and in batch.
+    """
+
+    name = "topk"
+    lossless = False
+    stateful = False
+    remaps_coordinates = True     # output = values at per-message indices
+
+    def __init__(self, k_fraction: float = 0.01):
+        if not 0.0 < k_fraction <= 1.0:
+            raise WireError(f"topk fraction must be in (0, 1], "
+                            f"got {k_fraction}")
+        self.k_fraction = float(k_fraction)
+        self.est_ratio = 2.0 * self.k_fraction   # (u4 idx + f4 val) per kept
+        self.legacy_codec = TopKCodec(k_fraction=self.k_fraction)
+
+    def spec(self) -> str:
+        return f"topk({self.k_fraction:g})"
+
+    def encode(self, arr, slot):
+        arr = _require_f4(arr, self.name)
+        k = min(arr.size, max(1, int(arr.size * self.k_fraction)))
+        idx = topk_indices(arr, k)
+        vals = _gather_rows(arr.reshape(1, -1), idx.reshape(1, -1))
+        params = _U64.pack(arr.size) + idx.astype("<u4").tobytes()
+        return np.ascontiguousarray(vals.reshape(-1), dtype="<f4"), params
+
+    def decode(self, arr, params, slot):
+        if len(params) < 8:
+            raise WireDecodeError("topk params truncated")
+        n = _U64.unpack_from(params, 0)[0]
+        if n > MAX_DECODE_PARAMS:
+            # A wire-controlled u64 must never size an allocation
+            # unchecked (and u32 indices cannot address beyond 2**32
+            # anyway); the cap lives in repro_torch.core.compression.
+            raise WireDecodeError(f"topk n={n} exceeds MAX_DECODE_PARAMS "
+                                  f"({MAX_DECODE_PARAMS})")
+        idx = np.frombuffer(params, dtype="<u4", offset=8)
+        vals = np.asarray(arr, dtype=np.float32)
+        if idx.size != vals.size:
+            raise WireDecodeError(f"topk index/value count mismatch: "
+                                  f"{idx.size} vs {vals.size}")
+        if idx.size and (n == 0 or int(idx.max()) >= n):
+            raise WireDecodeError("topk index out of range")
+        return _scatter_rows(idx.reshape(1, -1), vals.reshape(1, -1),
+                             n).reshape(-1)
+
+    batch_capable = True
+
+    def encode_batch(self, batch, slots):
+        batch = _require_f4_batch(batch, self.name)
+        n_items, n = batch.shape
+        k = min(n, max(1, int(n * self.k_fraction)))
+        if k <= 0:       # only when n == 0: an empty sparsification
+            idx = np.zeros((n_items, 0), dtype="<u4")
+            vals = np.zeros((n_items, 0), dtype="<f4")
+        else:
+            # Selection stays numpy even on the kernel backend:
+            # np.argpartition's introselect runs per row under axis=1, so
+            # each row picks the same index SET as the 1-D call inside
+            # topk_indices (pinned by the batch==loop parity sweep), and
+            # sorting makes the byte layout identical.
+            idx = np.sort(np.argpartition(np.abs(batch), -k, axis=1)[:, -k:],
+                          axis=1).astype("<u4")
+            vals = _gather_rows(batch, idx)
+        head = _U64.pack(n)
+        # One bulk tobytes + C-level slicing beats n_items row tobytes.
+        blob, step = np.ascontiguousarray(idx).tobytes(), 4 * k
+        params = ([head + blob[o:o + step]
+                   for o in range(0, n_items * step, step)]
+                  if step else [head] * n_items)
+        return np.ascontiguousarray(vals, dtype="<f4"), params
+
+    def decode_batch(self, arr, params, slots):
+        if not params:
+            return np.zeros((0, 0), dtype=np.float32)
+        if len(params[0]) < 8:
+            raise WireDecodeError("topk params truncated")
+        head = params[0][:8]
+        if any(len(p) != len(params[0]) or p[:8] != head for p in params):
+            # Mixed n or k across the group: degrade to per-item decode
+            # rather than guess a rectangle.
+            raise WireDecodeError("topk batch group is not uniform")
+        n = _U64.unpack_from(head, 0)[0]
+        if n > MAX_DECODE_PARAMS:
+            raise WireDecodeError(f"topk n={n} exceeds MAX_DECODE_PARAMS "
+                                  f"({MAX_DECODE_PARAMS})")
+        vals = np.asarray(arr, dtype=np.float32)
+        n_items = vals.shape[0]
+        k, rem = divmod(len(params[0]) - 8, 4)
+        if rem or k != vals.shape[1]:
+            raise WireDecodeError(f"topk index/value count mismatch: "
+                                  f"{k} vs {vals.shape[1]}")
+        if k == 0:
+            return np.zeros((n_items, n), dtype=np.float32)
+        # Uniform group (checked above): join once, view as a (N, k) u4
+        # matrix past the 8-byte heads — no per-item frombuffer.
+        buf = np.frombuffer(b"".join(params), dtype=np.uint8)
+        idx = np.ascontiguousarray(
+            buf.reshape(n_items, 8 + 4 * k)[:, 8:]).view("<u4")
+        if n == 0 or int(idx.max()) >= n:
+            raise WireDecodeError("topk index out of range")
+        return _scatter_rows(idx, vals, n)
+
+
 class Int8Stage(Stage):
     """Blockwise absmax int8 quantization (the ``quantize`` kernels' wire
     twin).  Encode emits the int8 values as the flowing array and
@@ -809,7 +958,7 @@ def register_stage(name: str, factory: Callable[..., Stage], *,
                    overwrite: bool = False) -> None:
     """Register a stage factory under ``name``.  The factory is called with
     the (already number-parsed) args from the spec token, e.g.
-    ``int8(512)`` calls ``factory(512)``.  Re-registering raises unless
+    ``topk(0.01)`` calls ``factory(0.01)``.  Re-registering raises unless
     ``overwrite=True`` — silently shadowing ``int8`` would corrupt every
     payload already in flight under the old meaning."""
     if not overwrite and name in _STAGES:
@@ -835,7 +984,7 @@ def _parse_number(tok: str) -> float | int:
 
 
 def parse_stage(token: str) -> Stage:
-    """``"int8(512)"`` -> an Int8Stage.  Raises WireError for unknown names
+    """``"topk(0.01)"`` -> a TopKStage.  Raises WireError for unknown names
     or malformed args (WireDecodeError when reached from a wire header)."""
     token = token.strip()
     name, args = token, ()
@@ -864,12 +1013,52 @@ def parse_stage(token: str) -> Stage:
 
 
 def parse_pipeline(spec: str) -> "Pipeline":
-    """``"delta|ef|int8(1024)"`` -> a Pipeline (self-describing
+    """``"delta|ef|topk(0.01)|int8(1024)"`` -> a Pipeline (self-describing
     by default)."""
     tokens = [t for t in (tok.strip() for tok in spec.split("|")) if t]
     if not tokens:
         raise WireError(f"empty pipeline spec {spec!r}")
     return Pipeline([parse_stage(t) for t in tokens])
+
+
+def parse_hop_specs(spec: str,
+                    known_hops: Optional[Sequence[str]] = None
+                    ) -> dict[str, str]:
+    """Parse a *per-hop* pipeline spec string into ``{hop: pipeline spec}``.
+
+    A multi-tier topology (``repro_torch.core.topology``) composes a different
+    wire pipeline on every hop — e.g. a lossy sparsifying uplink from
+    clients to their edge aggregator but a lossless delta on the
+    aggregated edge->root link::
+
+        "client->edge: topk(0.01)|int8(1024); edge->root: delta"
+
+    Entries are ``;``-separated ``hop: pipeline`` pairs (the first ``:``
+    splits, so stage arguments are unaffected).  Every pipeline is parsed
+    eagerly — a typo'd stage fails here, at configuration time, not deep
+    inside a round.  When ``known_hops`` is given, hop names outside it
+    are rejected (each topology publishes its hop names).
+    """
+    out: dict[str, str] = {}
+    for entry in spec.split(";"):
+        entry = entry.strip()
+        if not entry:
+            continue
+        hop, sep, pipe = entry.partition(":")
+        hop, pipe = hop.strip(), pipe.strip()
+        if not sep or not hop or not pipe:
+            raise WireError(f"malformed hop spec entry {entry!r}; expected "
+                            f"'hop: stage|stage(...)'")
+        if hop in out:
+            raise WireError(f"duplicate hop {hop!r} in hop spec")
+        if known_hops is not None and hop not in known_hops:
+            raise WireError(f"unknown hop {hop!r}; this topology's hops: "
+                            f"{sorted(known_hops)}")
+        parse_pipeline(pipe)     # validate eagerly; raises WireError
+        out[hop] = pipe
+    if not out:
+        raise WireError(f"empty hop spec {spec!r}")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -995,7 +1184,7 @@ class Pipeline:
                     # corrupts every update.
                     raise WireError(
                         "ef must precede any coordinate-remapping stage "
-                        "(int8/hex); order the spec 'ef|int8|...'")
+                        "(topk/int8/hex); order the spec 'ef|topk|...'")
                 ef_seen = True
             remapped = remapped or s.remaps_coordinates
             if ef_seen and s.delta_domain:
@@ -1009,7 +1198,7 @@ class Pipeline:
         for s in stages[:-1]:
             if isinstance(s, CrcStage):
                 # A later stage's decode need not reproduce the exact
-                # bytes crc checksummed (int8 dequantizes),
+                # bytes crc checksummed (int8 dequantizes, topk scatters),
                 # so a non-terminal crc would fail every payload.
                 raise WireError("crc must be the terminal stage (it "
                                 "checksums the exact wire body)")
@@ -1329,7 +1518,7 @@ class Pipeline:
                      for o in range(0, len(datas), chunk)]
             if any(m.shape[1] != parts[0].shape[1] for m in parts[1:]):
                 # Uniform within each chunk but not across them (e.g.
-                # mixed int8 n values): same refusal as the stage-level
+                # mixed topk n values): same refusal as the stage-level
                 # uniformity checks — degrade, don't guess a rectangle.
                 raise WireDecodeError("batch group is not uniform")
             return np.concatenate(parts, axis=0)
@@ -1633,7 +1822,7 @@ class CodecStage(Stage):
 
 
 def stage_for_codec(codec) -> Stage:
-    """Map a legacy Codec instance onto its canonical stage (the three
+    """Map a legacy Codec instance onto its canonical stage (the four
     built-ins) or a :class:`CodecStage` adapter (anything else)."""
     if isinstance(codec, RawCodec):
         return RawStage()
@@ -1641,6 +1830,8 @@ def stage_for_codec(codec) -> Stage:
         return HexStage()
     if isinstance(codec, Int8Codec):
         return Int8Stage(block=codec.block)
+    if isinstance(codec, TopKCodec):
+        return TopKStage(codec.k_fraction)
     return CodecStage(codec)
 
 
@@ -1648,6 +1839,10 @@ def _terminal_from_name(codec: str, kwargs: dict) -> Stage:
     # Codec kwargs use the compression.py names; map them onto stage args.
     if codec == "int8":
         return Int8Stage(**kwargs)
+    if codec == "topk":
+        if "k_fraction" in kwargs:
+            return TopKStage(kwargs["k_fraction"])
+        return TopKStage(**kwargs)
     if kwargs:
         raise WireError(f"codec {codec!r} takes no kwargs, got {kwargs}")
     return parse_stage(codec)
@@ -1655,6 +1850,7 @@ def _terminal_from_name(codec: str, kwargs: dict) -> Stage:
 
 register_stage("delta", DeltaStage)
 register_stage("ef", ErrorFeedbackStage)
+register_stage("topk", TopKStage)
 register_stage("int8", Int8Stage)
 register_stage("raw", RawStage)
 register_stage("hex", HexStage)

@@ -110,6 +110,14 @@ def profile(trace_path: str, rounds: int = 3, **build_kwargs) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     prof.export_chrome_trace(trace_path)
+    return {"rounds": rounds, "wall_s": wall,
+            **trace_summary(trace_path, wall)}
+
+
+def trace_summary(trace_path: str, wall_s: float) -> dict:
+    """Device busy time of a chrome trace written by ``torch.profiler``
+    (union of kernel, memcpy and memset intervals), its idle share of the
+    host wall time ``wall_s``, and the device time of the busiest kernels."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     spans, by_name = [], {}
@@ -124,8 +132,8 @@ def profile(trace_path: str, rounds: int = 3, **build_kwargs) -> dict:
             busy_us += b - max(a, end)
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    return {"rounds": rounds, "wall_s": wall, "device_busy_s": busy_us / 1e6,
-            "idle_share": 1.0 - busy_us / 1e6 / wall,
+    return {"device_busy_s": busy_us / 1e6,
+            "idle_share": 1.0 - busy_us / 1e6 / wall_s,
             "device_events": len(spans),
             "top_device_us": {name[:80]: us for name, us in top}}
 

@@ -23,7 +23,9 @@ class KernelError(RuntimeError):
     """A kernel (or the device it runs on) failed; never degraded."""
 
 
-launch_counts: dict[str, int] = {"fedavg": 0, "quantize": 0, "dequantize": 0}
+launch_counts: dict[str, int] = {"fedavg": 0, "quantize": 0, "dequantize": 0,
+                                 "topk_gather": 0, "topk_scatter": 0,
+                                 "checksum": 0}
 
 
 def reset_launch_counts() -> None:

@@ -29,6 +29,8 @@ BUILD_DIR = _PKG.parents[2] / "build" / "torch_kernels"
 SOURCES = {
     "fedavg": "fedavg/csrc/fedavg.cu",
     "quantize": "quantize/csrc/quantize.cu",
+    "topk": "topk/csrc/topk.cu",
+    "checksum": "checksum/csrc/checksum.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",

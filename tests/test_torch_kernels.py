@@ -183,11 +183,15 @@ def test_kernel_backend_on_cpu_runs_the_plain_versions(monkeypatch):
     stack, weights = _stack(4, 3000)
     port_agg.fedavg_stack(stack, weights, "kernel")
     assert port_wire.batch_backend() == "kernel"
-    pipe = port_wire.parse_pipeline("int8(1024)")
-    payloads = pipe.encode_batch([stack[0], stack[1]])
-    port_wire.decode_payload_batch(payloads)
+    for spec in ("int8(1024)", "topk(0.1)|int8(1024)"):
+        pipe = port_wire.parse_pipeline(spec)
+        payloads = pipe.encode_batch([stack[0], stack[1]])
+        port_wire.decode_payload_batch(payloads)
+        pipe.decode(pipe.encode(stack[2], pipe.new_state()),
+                    pipe.new_state())
     assert kernels.launch_counts == {"fedavg": 0, "quantize": 0,
-                                     "dequantize": 0}
+                                     "dequantize": 0, "topk_gather": 0,
+                                     "topk_scatter": 0, "checksum": 0}
 
 
 def test_cuda_without_a_card_raises():

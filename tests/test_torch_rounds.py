@@ -1,11 +1,12 @@
 """The port's sync orchestrator reproduces the reference's pinned digests.
 
 The six replay scenarios (``repro_torch.replay``, ported from
-``tests/test_orchestrator_equivalence.py``) run over ``mudp`` under both
-packet engines, with the fedavg kernel backend (its plain PyTorch
-version on the CPU) and with the numpy fold.  All 24 runs must give the
-reference's pinned ``EXPECTED[(scenario, "mudp")]`` digest: round records,
-global model and simulator stats bit for bit.
+``tests/test_orchestrator_equivalence.py``) run over every transport
+(``mudp``, ``udp``, ``tcp``, ``mudp+fec``) under both packet engines, with
+the fedavg kernel backend (its plain PyTorch version on the CPU) and with
+the numpy fold.  All 96 runs must give the reference's pinned
+``EXPECTED[(scenario, kind)]`` digest: round records, global model and
+simulator stats bit for bit.
 """
 
 from __future__ import annotations
@@ -26,22 +27,23 @@ sys.path.insert(0, os.path.dirname(__file__))
 from test_orchestrator_equivalence import EXPECTED  # noqa: E402
 
 
+@pytest.mark.parametrize("kind", ["mudp", "udp", "tcp", "mudp+fec"])
 @pytest.mark.parametrize("backend", ["kernel", "numpy"])
 @pytest.mark.parametrize("engine", PACKET_ENGINES)
 @pytest.mark.parametrize("scenario", sorted(replay.SCENARIOS))
-def test_mudp_digest_matches_reference_pin(scenario, engine, backend):
-    digest = replay.run_digest(scenario, "mudp", engine, device="cpu",
+def test_digest_matches_reference_pin(scenario, engine, backend, kind):
+    digest = replay.run_digest(scenario, kind, engine, device="cpu",
                                aggregation_backend=backend)
-    assert digest == EXPECTED[(scenario, "mudp")]
+    assert digest == EXPECTED[(scenario, kind)]
 
 
 def test_replay_constants_are_the_reference_pins():
-    assert replay.EXPECTED_MUDP == {s: d for (s, k), d in EXPECTED.items()
-                                    if k == "mudp"}
+    assert replay.EXPECTED == EXPECTED
 
 
-def test_slice_registers_mudp_only_and_refuses_flow():
-    assert port_transport.available_transports() == ["mudp"]
+def test_slice_registers_every_transport_and_refuses_flow():
+    assert port_transport.available_transports() == ["mudp", "mudp+fec",
+                                                     "tcp", "udp"]
     assert PACKET_ENGINES == ("per_packet", "batched")
     with pytest.raises(NotImplementedError, match="flow"):
         Simulator(engine="flow")

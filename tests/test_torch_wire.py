@@ -1,11 +1,14 @@
 """The port's wire plane against the reference's, byte for byte.
 
-The same vectors go through both packages for every spec of the slice:
+The same vectors go through both packages for every spec of the port:
 encoded bytes (per item and batched, including the delta/EF state they
 leave behind), the packets ``packetize`` cuts from them, and the batch
 decode of the server (the port on its ``"kernel"`` backend, the
-reference on ``"numpy"``) must be identical.  The pytree flatten that
-feeds the wire must follow JAX's sorted-key order.
+reference on ``"numpy"``) must be identical.  The ``topk`` pipelines are
+held to the same bytes and bits on both port backends (``"kernel"``:
+the top-k gather/scatter kernels' plain versions on the CPU;
+``"numpy"``: the host path).  The pytree flatten that feeds the wire
+must follow JAX's sorted-key order.
 """
 
 from __future__ import annotations
@@ -22,8 +25,9 @@ from repro_torch import device as port_device  # noqa: E402
 from repro_torch.core import packetizer as port_packetizer  # noqa: E402
 from repro_torch.core import wire as port_wire  # noqa: E402
 
+TOPK_SPECS = ["topk(0.05)", "topk(0.1)|hex", "delta|ef|topk(0.15)|int8(1024)"]
 SPECS = ["raw", "hex", "int8(1024)", "int8(512)", "delta|int8(1024)",
-         "delta|ef|int8(1024)", "int8(1024)|crc"]
+         "delta|ef|int8(1024)", "int8(1024)|crc", *TOPK_SPECS]
 N_ITEMS, N_PARAMS, N_MESSAGES = 5, 2500, 3
 
 
@@ -107,10 +111,57 @@ def test_numpy_backend_gives_the_same_bytes():
         port_wire.set_batch_backend("pallas")
 
 
-def test_topk_is_not_registered_in_this_slice():
-    assert "topk" not in port_wire.available_stages()
-    assert set(port_wire.available_stages()) == {"crc", "delta", "ef",
-                                                 "hex", "int8", "raw"}
+def test_topk_is_registered_and_stages_match_reference():
+    assert "topk" in port_wire.available_stages()
+    assert port_wire.available_stages() == ref_wire.available_stages()
+    assert isinstance(port_wire.parse_stage("topk(0.25)"),
+                      port_wire.TopKStage)
+
+
+@pytest.mark.parametrize("backend", ["kernel", "numpy"])
+@pytest.mark.parametrize("spec", TOPK_SPECS)
+def test_topk_pipelines_identical_on_both_backends(spec, backend):
+    msgs = _messages(7 + len(spec))
+    ours_p, theirs_p = port_wire.parse_pipeline(spec), \
+        ref_wire.parse_pipeline(spec)
+    refs = msgs[0]
+    with port_wire.using_batch_backend(backend):
+        ours_item, theirs_item = _states(ours_p, refs), \
+            _states(theirs_p, refs)
+        ours_batch = _states(ours_p, refs)
+        for msg in msgs[1:]:
+            b = [theirs_p.encode(v, s) for v, s in zip(msg, theirs_item)]
+            assert [ours_p.encode(v, s) for v, s in
+                    zip(msg, ours_item)] == b
+            assert ours_p.encode_batch(msg, ours_batch) == b
+            ours = port_wire.decode_payload_batch(b)
+            theirs = ref_wire.decode_payload_batch(b)
+            for (va, _, ea), (vb, _, eb) in zip(ours, theirs):
+                assert ea is None and eb is None
+                np.testing.assert_array_equal(va.view(np.uint32),
+                                              vb.view(np.uint32))
+            for data, (vb, _, _) in zip(b, theirs):
+                va, _ = port_wire.decode_payload(data)
+                np.testing.assert_array_equal(va.view(np.uint32),
+                                              vb.view(np.uint32))
+
+
+def test_topk_decode_refuses_out_of_range_indices():
+    """Wire-supplied u32 indices are range-checked on the host before any
+    cast to int32, per item and in batch, on both backends."""
+    stage = port_wire.TopKStage(0.5)
+    vals, params = stage.encode(np.arange(8, dtype=np.float32), {})
+    bad = params[:8] + np.array([1, 2, 3, 2**32 - 1], "<u4").tobytes()
+    big = np.array([2**40], ">u8").tobytes() + params[8:]
+    for backend in ("kernel", "numpy"):
+        with port_wire.using_batch_backend(backend):
+            with pytest.raises(port_wire.WireDecodeError, match="range"):
+                stage.decode(vals, bad, {})
+            with pytest.raises(port_wire.WireDecodeError, match="range"):
+                stage.decode_batch(vals[None], [bad], [{}])
+            with pytest.raises(port_wire.WireDecodeError,
+                               match="MAX_DECODE_PARAMS"):
+                stage.decode(vals, big, {})
 
 
 def _trees():
