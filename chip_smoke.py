@@ -31,12 +31,34 @@ Phases, each printed on its own lines; any failure exits non-zero:
    retransmissions and tier counts.  Then the checksum kernel runs over
    every uplink body the server decoded in that run, against the numpy
    ChunkSum-32.
-6. A JSON line with every kernel's numbers, the card line again, and the
+6. gemma3-12b serving at full width (48 layers, d_model 3840, vocab
+   262,144, seeded bf16 parameters on the card): one prefill of B=2 x
+   2048 tokens through ``make_prefill_step`` (the flash attention kernel,
+   48 launches; local layers mask a 1024 window), then 16 greedy decode
+   steps from its KV cache grown to P + 16.  Holds: (a) the prefill with
+   the kernel's plain version gives last-position logits and each layer's
+   K/V within the stated relative L2 errors; (b) a prefill of the first
+   P-1 tokens plus one decode step gives the full prefill's logits within
+   the same error; (c) top-1 tokens agree wherever the top-2 margin
+   exceeds the error.  Prints prefill and decode wall time, launches and
+   peak memory.
+7. xlstm-350m serving at full width (24 layers, d_model 1024, mLSTM head
+   width 512): B=4 x 2048 tokens (the chunkwise mLSTM kernel, 21
+   launches), 16 greedy steps from the recurrent state, holds (a)-(c) with
+   the recurrent decode in (b); then ``python -m repro_torch.launch.serve
+   --arch xlstm-350m --device cuda`` as a subprocess must exit 0.
+8. A JSON line with every kernel's numbers, the card line again, and the
    result line ``{"ok": true, "device": {...}}`` last.
 
-Launch counts are zeroed just before each path (phases 4, 5 and the
-checksum pass of 5) and read just after it, so the comparison launches of
-phase 2 and of the ``encode_batch`` check do not count.
+Phase 2 also holds the flash attention and mLSTM kernels against their
+plain versions at the serving shapes and at a 1500-token prompt, in bf16
+and f32, and times the serving shapes beside the bf16 tensor-core bound
+(and, for attention, ``scaled_dot_product_attention``).
+
+Launch counts are zeroed just before each path (phases 4, 5, the
+checksum pass of 5, and the serving run of 6 and of 7) and read just
+after it, so the comparison launches of phase 2, of the ``encode_batch``
+check and of the serving holds do not count.
 
 It exits non-zero with no result when CUDA is unavailable.
 """
@@ -81,20 +103,69 @@ FLEET_ROUNDS = 10
 #: and 5; phase 5 prints the top-k kernels' calls by shape)
 MAIN_SHAPE = {"fedavg": "batch", "quantize": "client",
               "dequantize": "batch", "topk_gather": "client_t2",
-              "topk_scatter": "client_t2", "checksum": "uplink"}
+              "topk_scatter": "client_t2", "checksum": "uplink",
+              "flash_attention": "local", "mlstm": "path"}
 SOURCES = {"fedavg": "src/repro_torch/kernels/fedavg/csrc/fedavg.cu",
            "quantize": "src/repro_torch/kernels/quantize/csrc/quantize.cu",
            "dequantize": "src/repro_torch/kernels/quantize/csrc/quantize.cu",
            "topk_gather": "src/repro_torch/kernels/topk/csrc/topk.cu",
            "topk_scatter": "src/repro_torch/kernels/topk/csrc/topk.cu",
-           "checksum": "src/repro_torch/kernels/checksum/csrc/checksum.cu"}
+           "checksum": "src/repro_torch/kernels/checksum/csrc/checksum.cu",
+           "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/"
+                              "flash_attention.cu",
+           "mlstm": "src/repro_torch/kernels/mlstm/csrc/mlstm.cu"}
 REPLACES = {"fedavg": "src/repro/kernels/fedavg/fedavg.py:32",
             "quantize": "src/repro/kernels/quantize/quantize.py:40",
             "dequantize": "src/repro/kernels/quantize/quantize.py:68",
             "topk_gather": "src/repro/kernels/topk/topk.py:48",
             "topk_scatter": "src/repro/kernels/topk/topk.py:67",
-            "checksum": "src/repro/kernels/checksum/checksum.py:50"}
+            "checksum": "src/repro/kernels/checksum/checksum.py:50",
+            "flash_attention":
+                "src/repro/kernels/flash_attention/flash_attention.py:77",
+            "mlstm": "src/repro/kernels/mlstm/mlstm.py:79"}
 WARMUP, REPS = 3, 20
+PEAK_BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor cores
+# LM serving at full width (phases 6-7): (batch, prompt) per model, the
+# greedy steps after the prefill, and the kernels' launches per prefill
+# (gemma3-12b: one flash attention per layer; xlstm-350m: one mLSTM per
+# mLSTM layer, 3 groups x 7).
+# ``f32_twin``: the holds also run on a float32 copy of the parameters
+# (see LM_F32_REL_L2).
+LM_PATHS = {"gemma3-12b": {"batch": 2, "prompt": 2048,
+                           "kernel": "flash_attention", "per_prefill": 48,
+                           "f32_twin": False},
+            "xlstm-350m": {"batch": 4, "prompt": 2048, "kernel": "mlstm",
+                           "per_prefill": 21, "f32_twin": True}}
+GEN_STEPS = 16
+TAIL_S = 1500                     # a prompt no 64-row tile divides
+# Kernel bands against the plain versions: f32 as tests/test_kernels.py
+# holds the Pallas kernels, bf16 as its test_dtypes does;
+# |kernel - plain| <= band * (1 + |plain|) elementwise, except the mLSTM
+# in bf16: there the gated scores are rounded to bf16 before the product
+# with v (as on the TPU), under another stabiliser in the kernel (the
+# running row max) than in the plain version (the row max), so each
+# output's error scales with its row's signed sum of rounded terms, not
+# with the output itself; its band is band * (1 + max |plain| over the
+# row's dh outputs).
+LM_BANDS = {"float32": {"flash_attention": 2e-5, "mlstm": 5e-4},
+            "bfloat16": {"flash_attention": 3e-2, "mlstm": 3e-2}}
+# Serving holds (bf16 through 24-48 layers): relative L2 error of the
+# last-position logits (kernel vs plain prefill; prefill of P-1 tokens
+# plus one decode step vs the full prefill), and of each layer's K/V cache
+# or each recurrent state (kernel vs plain prefill).
+LM_LOGIT_REL_L2 = 5e-2
+LM_STATE_REL_L2 = 3e-2
+# The xLSTM at random init is too sensitive for bf16 holds of that size:
+# rounding its activations to bf16 at all moves the last-position logits
+# by 0.79 relative L2 from a float32 run of the same plain model, while
+# each mLSTM layer's kernel output lies 4.3e-4 to 5.1e-4 from the plain
+# one (5x under that layer's own bf16-vs-f32 error) and, in float32, the
+# whole prefill 1.7e-3 from the plain prefill (phase 7 on an NVIDIA H100
+# 80GB HBM3 at 700 W).  So its holds run in float32 against
+# LM_F32_REL_L2, and in bf16 against the model's own bf16 error (kernel
+# vs plain no larger than plain bf16 vs plain f32, for the whole model
+# and for each layer).
+LM_F32_REL_L2 = 1e-2
 
 
 def say(*parts) -> None:
@@ -161,9 +232,10 @@ def bits_equal(a, b) -> bool:
     return a.shape == b.shape and bool(torch.equal(a, b))
 
 
-def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
+def bound_ms(nbytes: int, flops: int,
+             peak_flops: float = PEAK_F32_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -183,14 +255,14 @@ def check_kernels():
     rows: dict[str, dict[str, dict]] = {}   # name -> shape name -> rec
 
     def record(name, key, shape, nbytes, flops, kernel_fn, plain_fn, lib_fn,
-               err, launch_fn=None):
+               err, launch_fn=None, peak_flops=PEAK_F32_FLOPS):
         """Time the kernel, its plain version and the library call (if
         any) both ways: per call (host launch included) and on the device
         alone; keep the numbers under rows[name][key].  ``launch_fn``,
         where given, is the bare launch into preallocated buffers that
         the device timing captures in place of the wrapper (whose read of
         the kernel's bad-index flag waits for the host)."""
-        bnd, by = bound_ms(nbytes, flops)
+        bnd, by = bound_ms(nbytes, flops, peak_flops)
         n = max(1, nbytes // 2)
         src = torch.empty(n, dtype=torch.uint8, device=dev)
         dst = torch.empty_like(src)
@@ -213,7 +285,8 @@ def check_kernels():
             "plain_ms": per_call["plain_ms"],
             "library_ms": per_call["library_ms"], "bound_ms": bnd,
             "bound_by": by, "copy_bound_ms": per_call["copy_ms"],
-            "bytes": nbytes, "max_abs_err": err, "device": on_dev}
+            "bytes": nbytes, "flops": flops, "max_abs_err": err,
+            "device": on_dev}
 
     # -- fedavg --------------------------------------------------------------
     for key, (k, n) in SHAPES["fedavg"].items():
@@ -293,6 +366,7 @@ def check_kernels():
 
     check_topk(dev, record)
     check_checksum(dev, record)
+    check_lm_kernels(dev, record, rows)
     return rows
 
 
@@ -444,6 +518,155 @@ def check_checksum(dev, record) -> None:
                lambda: ck_ops.chunksum32(x),
                lambda: ck_ref.chunksum32(x), None,
                float((sums.long() - plain.long()).abs().max()))
+
+
+def _kept_pairs(S: int, T: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask keeps: key t < T for query s, t <= s if
+    causal, s - t < window if window > 0."""
+    total = 0
+    for q in range(S):
+        hi = min(q, T - 1) if causal else T - 1
+        lo = max(0, q - window + 1) if window > 0 else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def _band_check(got, want, band: float,
+                row_scale: bool = False) -> tuple[bool, float]:
+    """(every |got - want| <= band * (1 + |want|), max |got - want|);
+    with ``row_scale`` the bound is band * (1 + the largest |want| in the
+    element's row, the last axis)."""
+    d = (got.float() - want.float()).abs()
+    scale = want.float().abs()
+    if row_scale:
+        scale = scale.amax(dim=-1, keepdim=True)
+    return bool((d <= band * (1 + scale)).all()), float(d.max())
+
+
+def check_lm_kernels(dev, record, rows) -> None:
+    """Phase 2 for the LM kernels (flash attention, chunkwise mLSTM) at
+    the serving paths' shapes and at a prompt no tile divides, in bf16 and
+    f32, against their plain versions; the path shapes in bf16 are timed
+    in full (``record``), the others per call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.mlstm import ops as mlstm_ops
+    from repro_torch.kernels.mlstm import ref as mlstm_ref
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    # gemma3-12b prefill: q (2, P, 16, 256), k/v (2, P, 8, 256); local
+    # layers window 1024, global layers none.
+    B, H, KV, hd = 2, 16, 8, 256
+    for S in (LM_PATHS["gemma3-12b"]["prompt"], TAIL_S):
+        for window in (1024, 0):
+            for dtype in (torch.bfloat16, torch.float32):
+                dname = str(dtype).removeprefix("torch.")
+                key = ("local" if window else "global") + (
+                    "" if S == LM_PATHS["gemma3-12b"]["prompt"] else f"_{S}")
+                q = torch.randn((B, S, H, hd), generator=gen,
+                                device=dev).to(dtype)
+                k, v = (torch.randn((B, S, KV, hd), generator=gen,
+                                    device=dev).to(dtype) for _ in range(2))
+                out = flash_ops.flash_attention(q, k, v, window=window)
+                plain = flash_ref.flash_attention(q, k, v, window=window)
+                torch.cuda.synchronize()
+                ok, err = _band_check(out, plain, LM_BANDS[dname][
+                    "flash_attention"])
+                say(f"  flash_attention {key} {dname} {(B, S, H, KV, hd)}: "
+                    f"max_abs_err {err} (band {LM_BANDS[dname]['flash_attention']})")
+                if not ok:
+                    raise AssertionError(f"flash_attention {key} {dname}: "
+                                         f"kernel outside the band, max "
+                                         f"|err| {err}")
+                esize = q.element_size()
+                nbytes = esize * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+                flops = 4 * hd * B * H * _kept_pairs(S, S, True, window)
+                peak = (PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                        else PEAK_F32_FLOPS)
+                if dtype == torch.bfloat16 and S == LM_PATHS[
+                        "gemma3-12b"]["prompt"]:
+                    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                    if window:
+                        pos = torch.arange(S, device=dev)
+                        band = ((pos[None] <= pos[:, None])
+                                & (pos[:, None] - pos[None] < window))
+                        lib = (lambda: F.scaled_dot_product_attention(
+                            qt, kt, vt, attn_mask=band, enable_gqa=True))
+                    else:
+                        lib = (lambda: F.scaled_dot_product_attention(
+                            qt, kt, vt, is_causal=True, enable_gqa=True))
+                    record("flash_attention", key, (B, S, H, KV, hd, window),
+                           nbytes, flops,
+                           lambda: flash_ops.flash_attention(
+                               q, k, v, window=window),
+                           lambda: flash_ref.flash_attention(
+                               q, k, v, window=window), lib, err,
+                           peak_flops=peak)
+                else:
+                    ms = time_ms(lambda: flash_ops.flash_attention(
+                        q, k, v, window=window))
+                    bnd, by = bound_ms(nbytes, flops, peak)
+                    say(f"    per call {ms:.6f} ms, bound {bnd:.6f} ms ({by})")
+                    rows.setdefault("flash_attention", {})[
+                        f"{key}_{dname}"] = {
+                        "shape": [B, S, H, KV, hd, window], "ms": ms,
+                        "bound_ms": bnd, "bound_by": by, "bytes": nbytes,
+                        "flops": flops, "max_abs_err": err}
+                del q, k, v, out, plain
+
+    # xlstm-350m prefill: q/k/v (4, P, 4, 512) (dh = 2 * d_model / nh),
+    # gate logits (4, P, 4).
+    B, nh, dh = 4, 4, 512
+    for S in (LM_PATHS["xlstm-350m"]["prompt"], TAIL_S):
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).removeprefix("torch.")
+            key = "path" if S == LM_PATHS["xlstm-350m"]["prompt"] else \
+                f"tail_{S}"
+            q, k, v = (torch.randn((B, S, nh, dh), generator=gen,
+                                   device=dev).to(dtype) for _ in range(3))
+            ig = torch.randn((B, S, nh), generator=gen, device=dev).to(dtype)
+            fg = (torch.randn((B, S, nh), generator=gen, device=dev)
+                  + 2.0).to(dtype)
+            out = mlstm_ops.mlstm(q, k, v, ig, fg)
+            plain = mlstm_ref.mlstm_parallel(q, k, v, ig, fg)
+            torch.cuda.synchronize()
+            ok, err = _band_check(out, plain, LM_BANDS[dname]["mlstm"],
+                                  row_scale=dtype == torch.bfloat16)
+            # Context for the bf16 band: each against the f32 plain
+            # version on the same (bf16-valued) inputs.
+            exact = mlstm_ref.mlstm_parallel(
+                *(t.float() for t in (q, k, v, ig, fg)))
+            say(f"  mlstm {key} {dname} {(B, S, nh, dh)}: max_abs_err "
+                f"{err} (band {LM_BANDS[dname]['mlstm']}); against f32: "
+                f"kernel {float((out.float() - exact).abs().max())}, plain "
+                f"{float((plain.float() - exact).abs().max())}, max |out| "
+                f"{float(exact.abs().max())}")
+            del exact
+            if not ok:
+                raise AssertionError(f"mlstm {key} {dname}: kernel outside "
+                                     f"the band, max |err| {err}")
+            esize = q.element_size()
+            nbytes = esize * (4 * B * S * nh * dh + 2 * B * S * nh)
+            flops = 4 * dh * B * nh * _kept_pairs(S, S, True, 0)
+            peak = (PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                    else PEAK_F32_FLOPS)
+            if dtype == torch.bfloat16 and key == "path":
+                record("mlstm", key, (B, S, nh, dh), nbytes, flops,
+                       lambda: mlstm_ops.mlstm(q, k, v, ig, fg),
+                       lambda: mlstm_ref.mlstm_parallel(q, k, v, ig, fg),
+                       None, err, peak_flops=peak)
+            else:
+                ms = time_ms(lambda: mlstm_ops.mlstm(q, k, v, ig, fg))
+                bnd, by = bound_ms(nbytes, flops, peak)
+                say(f"    per call {ms:.6f} ms, bound {bnd:.6f} ms ({by})")
+                rows.setdefault("mlstm", {})[f"{key}_{dname}"] = {
+                    "shape": [B, S, nh, dh], "ms": ms, "bound_ms": bnd,
+                    "bound_by": by, "bytes": nbytes, "flops": flops,
+                    "max_abs_err": err}
+            del q, k, v, ig, fg, out, plain
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------
@@ -623,6 +846,306 @@ def run_checksum_path(bodies: list[bytes]) -> dict:
     return counts
 
 
+# --------------------------------------------------------------------------
+# Phases 6-7: LM serving at full width
+# --------------------------------------------------------------------------
+def _rel_l2(got, want) -> float:
+    import torch
+    got, want = got.float(), want.float()
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want))
+
+
+def _top1(got, want) -> tuple[bool, int]:
+    """Whether ``got``'s top-1 token equals ``want``'s on every row whose
+    top-2 margin in ``want`` exceeds the largest |got - want|; and how many
+    rows that is."""
+    import torch
+    err = float((got - want).abs().max())
+    top2 = torch.topk(want, 2, dim=-1).values
+    rows = (top2[:, 0] - top2[:, 1]) > err
+    agree = got.argmax(-1) == want.argmax(-1)
+    return bool(agree[rows].all()), int(rows.sum())
+
+
+def _state_errors(cache, plain) -> dict:
+    """Relative L2 error of each layer's K and V (transformer) or of each
+    recurrent state (xLSTM), worst layer per key."""
+    import torch
+    out = {}
+    for key, val in cache.items():
+        if not torch.is_tensor(val):
+            continue
+        if key in ("k", "v"):
+            out[key] = max(_rel_l2(val[i], plain[key][i])
+                           for i in range(val.shape[0]))
+        else:
+            out[key] = _rel_l2(val, plain[key])
+    return out
+
+
+def _device_profile(label: str, fn) -> dict:
+    """Run ``fn()`` once under ``torch.profiler`` and print where the card's
+    time went: the wall time (profiler overhead included), the device busy
+    time (kernels and copies on the card; one stream, so they do not
+    overlap), its share of the wall, the kernel count and the five
+    costliest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    # Device activity only: the host's operator events would triple the
+    # records (the xLSTM prefill alone launches about 180,000 kernels)
+    # and the profiler's processing time with them.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    launches = sum(e.count for e in rows)
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:5]
+    out = {"wall_s": wall, "device_busy_ms": busy_ms,
+           "idle_share": 1 - busy_ms / 1e3 / wall, "device_ops": launches,
+           "top": {e.key[:60]: e.self_device_time_total / 1e3 for e in top}}
+    say(f"  {label} under the profiler: wall {wall:.6f} s, device busy "
+        f"{busy_ms:.3f} ms (idle share {out['idle_share']:.4f}), "
+        f"{launches} kernels and copies; top: {json.dumps(out['top'])}")
+    return out
+
+
+def _mlstm_layers(cfg, params, prompt) -> list[tuple[float, float]]:
+    """Layer by layer through the xLSTM prefill, each mLSTM layer fed the
+    plain route's input: (kernel vs plain, plain vs its float32 twin)
+    relative L2 of the layer's mLSTM output."""
+    import torch
+    from repro_torch.kernels.mlstm import ops as mlstm_ops
+    from repro_torch.kernels.mlstm import ref as mlstm_ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import xlstm as X
+
+    d, di, nh, dh = X._dims(cfg)
+    G, M = X._groups(cfg)
+    out = []
+    with torch.no_grad():
+        x = L.embed_tokens(params["embed"], prompt)
+        for g in range(G):
+            for m in range(M):
+                lp = X._group_params(params, g, m)
+                z, *qkvif = X._mlstm_inputs(x, lp)
+                plain = mlstm_ref.mlstm_parallel(*qkvif)
+                exact = mlstm_ref.mlstm_parallel(*(t.float() for t in qkvif))
+                out.append((_rel_l2(mlstm_ops.mlstm(*qkvif), plain),
+                            _rel_l2(plain, exact)))
+                x = X._mlstm_out(x, plain, z, lp, di)
+            x, _ = X.slstm_block(x, X._group_params(params, g), cfg)
+    return out
+
+
+def _cast_tree(tree: dict, dtype) -> dict:
+    return {k: _cast_tree(v, dtype) if isinstance(v, dict) else v.to(dtype)
+            for k, v in tree.items()}
+
+
+def _lm_holds(cfg, params, prompt, logits, prefill_cache) -> dict:
+    """Holds (a)-(c) of one prefill (``logits``, ``prefill_cache``): (a)
+    the same prefill with the kernel's plain version, (b) a prefill of the
+    first P-1 tokens plus one decode step, (c) top-1 agreement of both."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+
+    with torch.no_grad():
+        lg_plain, cache_plain = M.make_prefill_step(cfg, attn_impl="plain")(
+            params, {"tokens": prompt})
+        states = _state_errors(prefill_cache, cache_plain)
+        del cache_plain
+        _, cache_b = M.make_prefill_step(cfg)(params,
+                                              {"tokens": prompt[:, :-1]})
+        if cfg.family == "dense":
+            cache_b = T.grow_cache(cache_b, prompt.shape[1])
+        lg_b, _ = M.make_decode_step(cfg)(params, cache_b, prompt[:, -1:])
+        del cache_b
+    top_a, rows_a = _top1(logits, lg_plain)
+    top_b, rows_b = _top1(lg_b, logits)
+    return {"rel_l2_a": _rel_l2(logits, lg_plain), "states_a": states,
+            "rel_l2_b": _rel_l2(lg_b, logits), "top1_a": top_a,
+            "rows_a": rows_a, "top1_b": top_b, "rows_b": rows_b,
+            "plain_logits": lg_plain}
+
+
+def _say_holds(tag: str, h: dict, logit_hold: float, state_hold) -> list:
+    """Print one dtype's holds; return the failures."""
+    states = {k: float(f"{v:.3e}") for k, v in h["states_a"].items()}
+    n = len(h["plain_logits"])
+    say(f"  {tag} (a) kernel vs plain prefill: logits rel L2 "
+        f"{h['rel_l2_a']:.3e} (hold {logit_hold:.3e}); worst state rel L2 "
+        f"{json.dumps(states)} (hold {state_hold:.3e})")
+    say(f"  {tag} (b) prefill of P-1 + one decode step vs prefill: logits "
+        f"rel L2 {h['rel_l2_b']:.3e} (hold {logit_hold:.3e})")
+    say(f"  {tag} (c) top-1 agrees: (a) {h['top1_a']} on {h['rows_a']}/{n} "
+        f"rows, (b) {h['top1_b']} on {h['rows_b']}/{n} rows whose top-2 "
+        f"margin exceeds the error")
+    fails = []
+    if h["rel_l2_a"] > logit_hold:
+        fails.append(f"{tag} (a) logits rel L2 {h['rel_l2_a']}")
+    fails += [f"{tag} (a) {k} rel L2 {v}" for k, v in h["states_a"].items()
+              if v > state_hold]
+    if h["rel_l2_b"] > logit_hold:
+        fails.append(f"{tag} (b) logits rel L2 {h['rel_l2_b']}")
+    if not (h["top1_a"] and h["top1_b"]):
+        fails.append(f"{tag} (c) top-1 disagrees")
+    return fails
+
+
+def run_lm_path(arch: str) -> tuple[dict, dict]:
+    """Serve ``arch`` at full width on the card: seeded bf16 parameters,
+    one prefill through ``make_prefill_step`` (the kernels), then
+    GEN_STEPS greedy decode steps from its cache or state; launch counts
+    zeroed just before and read just after.  Then the holds of
+    :func:`_lm_holds` (and, with ``f32_twin``, on a float32 copy too).
+    Returns the path's launch counts and its numbers."""
+    import dataclasses
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+
+    spec = LM_PATHS[arch]
+    cfg = get_config(arch)
+    dev = torch.device("cuda")
+    B, P = spec["batch"], spec["prompt"]
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = M.init(cfg, gen, dev)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                           device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for group in (params, params.get("layers", {}),
+                                          params.get("mlstm", {}),
+                                          params.get("slstm", {}))
+                   for t in group.values() if torch.is_tensor(t))
+    say(f"  {arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size} (padded {cfg.padded_vocab}), {n_params} "
+        f"parameters in {cfg.dtype}, init {time.perf_counter() - t0:.3f} s")
+    prefill = M.make_prefill_step(cfg)
+    decode = M.make_decode_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        prefill_cache = cache            # decode writes only into copies
+        if cfg.family == "dense":                  # + 2 profiled steps
+            cache = T.grow_cache(cache, P + GEN_STEPS + 2)
+        tok = logits.argmax(-1, keepdim=True)
+        toks = [tok]
+        for _ in range(GEN_STEPS):
+            t0 = time.perf_counter()
+            step_logits, cache = decode(params, cache, tok)
+            tok = step_logits.argmax(-1, keepdim=True)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+            toks.append(tok)
+        counts = dict(kernels.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tokens = torch.cat(toks, dim=1).cpu()
+    say(f"  prefill B={B} P={P}: {t_prefill:.6f} s "
+        f"({B * P / t_prefill:.1f} tok/s); {GEN_STEPS} greedy steps: "
+        f"{sum(steps):.6f} s (first {steps[0] * 1e3:.3f} ms, median "
+        f"{statistics.median(steps) * 1e3:.3f} ms/step); peak memory "
+        f"{peak_gb:.3f} GB")
+    say(f"  launch counts: {json.dumps(counts)}")
+    for b in range(B):
+        say(f"  seq{b}: {tokens[b].tolist()}")
+    with torch.no_grad():
+        prof = {"prefill": _device_profile(
+                    "prefill", lambda: prefill(params, {"tokens": prompt})),
+                "decode": _device_profile(
+                    "2 decode steps", lambda: [decode(params, cache, tok)
+                                               for _ in range(2)])}
+    del cache
+    if counts[spec["kernel"]] != spec["per_prefill"]:
+        raise AssertionError(f"{arch}: {counts[spec['kernel']]} "
+                             f"{spec['kernel']} launches, want "
+                             f"{spec['per_prefill']} per prefill")
+    if not (torch.isfinite(logits).all() and torch.isfinite(step_logits).all()):
+        raise AssertionError(f"{arch}: non-finite logits")
+    if logits.shape != (B, cfg.padded_vocab):
+        raise AssertionError(f"{arch}: logits {tuple(logits.shape)}")
+
+    holds = {"bf16": _lm_holds(cfg, params, prompt, logits, prefill_cache)}
+    del prefill_cache
+    if spec["f32_twin"]:
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        params32 = _cast_tree(params, torch.float32)
+        with torch.no_grad():
+            lg32, cache32 = M.make_prefill_step(cfg32)(params32,
+                                                       {"tokens": prompt})
+        holds["f32"] = _lm_holds(cfg32, params32, prompt, lg32, cache32)
+        del params32, cache32
+        dtype_err = _rel_l2(holds["bf16"]["plain_logits"],
+                            holds["f32"]["plain_logits"])
+        say(f"  the model's own bf16 error: plain bf16 vs plain f32 "
+            f"prefill logits rel L2 {dtype_err:.3e}")
+        failures = (_say_holds("f32", holds["f32"], LM_F32_REL_L2,
+                               LM_F32_REL_L2)
+                    + _say_holds("bf16", holds["bf16"], dtype_err,
+                                 float("inf")))
+        # (d) each layer's kernel output, on the plain route's input, lies
+        # closer to the plain output than bf16 rounding puts that output
+        # from its float32 twin.
+        layers = _mlstm_layers(cfg, params, prompt)
+        worst = max(k for k, _ in layers)
+        say(f"  bf16 (d) layer by layer: kernel vs plain rel L2 "
+            f"{min(k for k, _ in layers):.3e}-{worst:.3e}; plain vs f32 "
+            f"{min(e for _, e in layers):.3e}-"
+            f"{max(e for _, e in layers):.3e}")
+        failures += [f"bf16 (d) layer {i}: kernel {k} > bf16 error {e}"
+                     for i, (k, e) in enumerate(layers) if k > e]
+        holds["layers"] = layers
+    else:
+        failures = _say_holds("bf16", holds["bf16"], LM_LOGIT_REL_L2,
+                              LM_STATE_REL_L2)
+    torch.cuda.synchronize()
+    if failures:
+        raise AssertionError(f"{arch}: " + "; ".join(failures))
+    del params
+    torch.cuda.empty_cache()
+    for key in ("bf16", "f32"):
+        holds.get(key, {}).pop("plain_logits", None)
+    return counts, {"prefill_s": t_prefill, "decode_s": sum(steps),
+                    "decode_step_first_s": steps[0],
+                    "decode_step_median_s": statistics.median(steps),
+                    "peak_gb": peak_gb, "profile": prof, "holds": holds,
+                    "n_params": n_params}
+
+
+def run_serve_cli() -> None:
+    """``python -m repro_torch.launch.serve`` at full width on the card."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "xlstm-350m", "--device", "cuda", "--prompt-len", "8", "--gen",
+           "4"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (os.path.join(HERE, "src"), os.environ.get("PYTHONPATH"))
+        if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
+                          text=True, timeout=300)
+    for line in proc.stdout.splitlines():
+        say(f"  serve: {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"serve exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    say(f"  serve exited 0 in {time.perf_counter() - t0:.3f} s")
+
+
 def main() -> int:
     import torch
 
@@ -680,12 +1203,26 @@ def main() -> int:
     if counts_ck["checksum"] <= 0:
         raise AssertionError("kernel checksum never launched")
 
+    lm = {}
+    for phase, arch in ((6, "gemma3-12b"), (7, "xlstm-350m")):
+        spec = LM_PATHS[arch]
+        say(f"[{phase}] {arch} serving at full width: prefill B="
+            f"{spec['batch']} P={spec['prompt']}, {GEN_STEPS} greedy steps")
+        t0 = time.perf_counter()
+        lm[arch] = run_lm_path(arch)
+        if arch == "xlstm-350m":
+            run_serve_cli()
+        say(f"  phase {phase}: {time.perf_counter() - t0:.3f} s")
+
     # Each kernel's launches on its own path: slice 1's kernels on phase
     # 4's path (their count on the fleet path beside it), the top-k
-    # kernels on the fleet path, checksum on the pass over its bodies.
+    # kernels on the fleet path, checksum on the pass over its bodies,
+    # flash attention and mLSTM on their model's serving path.
     path_counts = {"fedavg": counts_mnist, "quantize": counts_mnist,
                    "dequantize": counts_mnist, "topk_gather": counts_fleet,
-                   "topk_scatter": counts_fleet, "checksum": counts_ck}
+                   "topk_scatter": counts_fleet, "checksum": counts_ck,
+                   "flash_attention": lm["gemma3-12b"][0],
+                   "mlstm": lm["xlstm-350m"][0]}
     out = []
     for name in MAIN_SHAPE:
         rec = rows[name][MAIN_SHAPE[name]]
@@ -703,6 +1240,10 @@ def main() -> int:
                     "device": rec["device"],
                     "other_shapes": {key: r for key, r in rows[name].items()
                                      if key != MAIN_SHAPE[name]}})
+    for name, arch in (("flash_attention", "gemma3-12b"),
+                       ("mlstm", "xlstm-350m")):
+        out[list(MAIN_SHAPE).index(name)]["serving"] = dict(
+            lm[arch][1], arch=arch)
     say(f"  total {time.perf_counter() - t_start:.3f} s")
     say(json.dumps({"kernels": out}))
     say(card_line())

@@ -1,0 +1,21 @@
+"""qwen3-moe-235b-a22b [moe] — 94L d_model=4096 64H (GQA kv=4) expert
+d_ff=1536 vocab=151936, MoE 128 experts top-8. [hf:Qwen/Qwen3-30B-A3B; hf]"""
+
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="qwen3-moe-235b-a22b",
+    family="moe",
+    num_layers=94,
+    d_model=4096,
+    num_heads=64,
+    num_kv_heads=4,
+    head_dim=128,
+    d_ff=1536,                 # per-expert FFN width
+    vocab_size=151936,
+    mlp_type="swiglu",
+    num_experts=128,
+    num_experts_per_tok=8,
+    rope_theta=1_000_000.0,
+    source="hf:Qwen/Qwen3-30B-A3B; hf",
+))

@@ -25,7 +25,8 @@ class KernelError(RuntimeError):
 
 launch_counts: dict[str, int] = {"fedavg": 0, "quantize": 0, "dequantize": 0,
                                  "topk_gather": 0, "topk_scatter": 0,
-                                 "checksum": 0}
+                                 "checksum": 0, "flash_attention": 0,
+                                 "mlstm": 0}
 
 
 def reset_launch_counts() -> None:

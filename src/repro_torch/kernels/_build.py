@@ -31,6 +31,8 @@ SOURCES = {
     "quantize": "quantize/csrc/quantize.cu",
     "topk": "topk/csrc/topk.cu",
     "checksum": "checksum/csrc/checksum.cu",
+    "flash_attention": "flash_attention/csrc/flash_attention.cu",
+    "mlstm": "mlstm/csrc/mlstm.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",

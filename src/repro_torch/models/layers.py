@@ -1,0 +1,200 @@
+"""Shared model building blocks: norms, RoPE, GQA attention, MLPs,
+embeddings (the reference's ``repro.models.layers``, in PyTorch).
+
+Conventions, as in the reference:
+ * activations (B, S, D); queries (B, S, H, hd); keys/values (B, T, KV, hd);
+ * masks are built from position vectors;
+ * softmax and normalization in float32, matmuls in the model dtype; where
+   the reference asks for float32 results (``preferred_element_type``) the
+   operands are cast to float32 first.
+
+Prefill attention (no ``kv_valid``) goes through the flash attention
+kernel's front door for any sequence length; it takes the place of both
+the reference's ``chunked_attention`` and its short-sequence einsum.  The
+decode step (``kv_valid`` given) stays the plain einsum attention.  The
+reference's sharding constraints have no counterpart on one device.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention import ref as flash_ref
+
+
+# --------------------------------------------------------------------------
+# Norms
+# --------------------------------------------------------------------------
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * scale.float()
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# RoPE
+# --------------------------------------------------------------------------
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """positions: (B, S) integer -> cos/sin (B, S, hd/2) in float32.
+    (M-RoPE, the reference's ``sections``, is not ported: ROADMAP A13.)"""
+    half = head_dim // 2
+    idx = torch.arange(half, dtype=torch.float32, device=positions.device)
+    freq = theta ** (-idx * 2.0 / head_dim)
+    angles = positions.float()[..., None] * freq
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, ..., hd); cos/sin: (B, S, hd/2) broadcast over head dims."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    shape = cos.shape[:2] + (1,) * (x.dim() - 3) + cos.shape[2:]
+    c, s = cos.reshape(shape), sin.reshape(shape)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Attention
+# --------------------------------------------------------------------------
+NEG_INF = -1e30
+
+
+def _band_bias(q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool,
+               window: int) -> torch.Tensor:
+    """Additive bias (..., Sq, Tk) from positions; ``window`` 0 = global."""
+    q = q_pos[..., :, None].long()
+    k = kv_pos[..., None, :].long()
+    ok = torch.ones(torch.broadcast_shapes(q.shape, k.shape),
+                    dtype=torch.bool, device=q.device)
+    if causal:
+        ok = ok & (k <= q)
+    if window > 0:
+        ok = ok & (q - k < window)
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    return torch.where(ok, zero, NEG_INF)
+
+
+def repeat_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B,T,KV,hd) -> (B,T,H,hd), each KV head repeated for its group."""
+    B, T, KV, hd = k.shape
+    if KV == num_heads:
+        return k
+    G = num_heads // KV
+    return k[:, :, :, None, :].expand(B, T, KV, G, hd).reshape(
+        B, T, num_heads, hd)
+
+
+def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  q_pos: torch.Tensor, kv_pos: torch.Tensor,
+                  causal: bool = True, window: int = 0,
+                  kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Einsum attention. q: (B,S,H,hd), k/v: (B,T,KV,hd) -> (B,S,H,hd).
+
+    ``kv_valid``: optional (B, T) bool marking populated cache slots
+    (decode). Softmax in f32.
+    """
+    H = q.shape[2]
+    k = repeat_kv(k, H)
+    v = repeat_kv(v, H)
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
+    bias = _band_bias(q_pos, kv_pos, causal, window)     # (S, T) or (B,S,T)
+    if bias.dim() == 3:
+        bias = bias[:, None]
+    scores = scores + bias
+    if kv_valid is not None:
+        scores = torch.where(kv_valid[:, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhst,bthd->bshd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.to(v.dtype)
+
+
+#: prefill attention routes: the flash attention kernel's front door, or
+#: its plain version (``chip_smoke.py`` holds the one against the other)
+PREFILL_IMPLS = ("kernel", "plain")
+
+
+def attention(q, k, v, *, q_pos, kv_pos, causal=True, window=0,
+              kv_valid=None, impl: str = "kernel"):
+    """Prefill (``kv_valid is None``): flash attention, whose positions run
+    from 0 (``q_pos``/``kv_pos`` are ``arange``), by the ``impl`` route.
+    Decode: einsum attention over the populated cache."""
+    if kv_valid is None:
+        if impl == "kernel":
+            return flash_ops.flash_attention(q, k, v, causal=causal,
+                                             window=window)
+        if impl == "plain":
+            return flash_ref.flash_attention(q, k, v, causal=causal,
+                                             window=window)
+        raise ValueError(f"prefill attention impl {impl!r} not in "
+                         f"{PREFILL_IMPLS}")
+    return gqa_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=causal,
+                         window=window, kv_valid=kv_valid)
+
+
+# --------------------------------------------------------------------------
+# Projections / MLP
+# --------------------------------------------------------------------------
+def qkv_proj(x, wq, wk, wv):
+    """x: (B,S,D) -> q (B,S,H,hd), k/v (B,S,KV,hd)."""
+    q = torch.einsum("bsd,dnh->bsnh", x, wq)
+    k = torch.einsum("bsd,dkh->bskh", x, wk)
+    v = torch.einsum("bsd,dkh->bskh", x, wv)
+    return q, k, v
+
+
+def out_proj(o, wo):
+    """o: (B,S,H,hd), wo: (H, hd, D) -> (B,S,D)."""
+    return torch.einsum("bsnh,nhd->bsd", o, wo)
+
+
+def mlp(x, params: dict, mlp_type: str):
+    if mlp_type == "swiglu":
+        gate = x @ params["w_gate"]
+        up = x @ params["w_up"]
+        h = F.silu(gate) * up
+    else:
+        h = F.gelu(x @ params["w_up"], approximate="tanh")   # jax.nn.gelu
+    return h @ params["w_down"]
+
+
+# --------------------------------------------------------------------------
+# Embedding / logits
+# --------------------------------------------------------------------------
+def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return embed[tokens]
+
+
+def logits_from_hidden(x, params, tie: bool):
+    """(B,S,D) -> (B,S,Vpad) float32 logits."""
+    if tie:
+        return x.float() @ params["embed"].float().T
+    return x.float() @ params["unembed"].float()
+
+
+# --------------------------------------------------------------------------
+# Init helpers
+# --------------------------------------------------------------------------
+def dense_init(gen: torch.Generator, shape, dtype, fan_in: Optional[int] = None,
+               device=None) -> torch.Tensor:
+    """Normal(0, 1) * fan_in^-0.5, drawn in float32 then cast, like the
+    reference's ``dense_init`` (the numbers differ: another generator).
+    Drawn slice by slice along the leading axis, so a stacked-by-layer
+    tensor never needs a float32 copy of itself."""
+    fan = fan_in if fan_in is not None else shape[0]
+    std = fan ** -0.5
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = out.reshape(shape[0], -1) if len(shape) > 2 else out.reshape(1, -1)
+    for row in rows:
+        row.copy_(torch.randn(row.shape, generator=gen, dtype=torch.float32,
+                              device=device) * std)
+    return out

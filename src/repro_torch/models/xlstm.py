@@ -1,0 +1,311 @@
+"""xLSTM backbone: mLSTM (matrix-memory, parallelizable) and sLSTM
+(scalar-memory, sequential) blocks interleaved 7:1 (xLSTM[7:1]); the
+reference's ``repro.models.xlstm`` in PyTorch.
+
+Prefill runs the mLSTM over the whole prompt through the chunkwise mLSTM
+kernel's front door (where the reference calls its XLA twin
+``mlstm_chunked``); decode uses the O(1)/token recurrent forms.  There is
+no KV cache, only per-layer state.
+
+Layout, as in the reference: layers come in GROUPS of ``slstm_every``
+(7 mLSTM + 1 sLSTM) with stacked params: mLSTM params lead with (G, 7, ...),
+sLSTM with (G, ...); the reference's scans are Python loops.
+
+Simplifications the reference records: the short causal conv preceding q/k
+in the original mLSTM block is omitted; norms are RMSNorm.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import device as _device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.mlstm import ops as mlstm_ops
+from repro_torch.kernels.mlstm.ref import mlstm_parallel
+from repro_torch.models import layers as L
+from repro_torch.models.transformer import padded_vocab
+
+PROJ_FACTOR = 2  # mLSTM up-projection factor
+
+
+def _dims(cfg: ModelConfig):
+    d = cfg.d_model
+    di = PROJ_FACTOR * d
+    nh = cfg.num_heads
+    dh = di // nh
+    return d, di, nh, dh
+
+
+def _groups(cfg: ModelConfig) -> tuple[int, int]:
+    """(G groups, M mLSTM layers per group)."""
+    per = cfg.slstm_every
+    return cfg.num_layers // per, per - 1
+
+
+# --------------------------------------------------------------------------
+# Init
+# --------------------------------------------------------------------------
+def init_xlstm(cfg: ModelConfig, gen: torch.Generator,
+               device: _device.DeviceLike | None = None) -> dict:
+    """Random parameters in the reference's tree layout, drawn from ``gen``
+    (a generator on ``device``)."""
+    dev = _device.resolve(device)
+    dt = getattr(torch, cfg.dtype)
+    d, di, nh, dh = _dims(cfg)
+    dh_s = d // nh          # sLSTM operates at model width
+    G, M = _groups(cfg)
+
+    def init(shape, fan):
+        return L.dense_init(gen, shape, dt, fan, device=dev)
+
+    def ones(shape):
+        return torch.ones(shape, dtype=dt, device=dev)
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    mp, sp = (G, M), (G,)
+    return {
+        "embed": init((padded_vocab(cfg), d), d),
+        "final_norm": ones((d,)),
+        "mlstm": {
+            "norm": ones(mp + (d,)),
+            "w_up": init(mp + (d, di), d),
+            "w_z": init(mp + (d, di), d),
+            "w_q": init(mp + (di, nh, dh), di),
+            "w_k": init(mp + (di, nh, dh), di),
+            "w_v": init(mp + (di, nh, dh), di),
+            "w_if": init(mp + (di, 2, nh), di),
+            "b_if": zeros(mp + (2, nh)),
+            "w_down": init(mp + (di, d), di),
+        },
+        "slstm": {
+            "norm": ones(sp + (d,)),
+            "w_gates": init(sp + (d, 4, nh, dh_s), d),
+            "r_gates": init(sp + (4, nh, dh_s, dh_s), dh_s),
+            "b_gates": zeros(sp + (4, nh, dh_s)),
+            "w_down": init(sp + (d, d), d),
+        },
+    }
+
+
+# --------------------------------------------------------------------------
+# mLSTM: kernel (prefill) + recurrent (decode)
+# --------------------------------------------------------------------------
+def mlstm_step(state, q, k, v, i_gate, f_gate):
+    """Recurrent mLSTM. state: C (B,nh,dh,dh), n (B,nh,dh), m (B,nh).
+    q/k/v: (B,nh,dh); gates (B,nh). Returns (new_state, h (B,nh,dh))."""
+    C, n, m = state
+    dh = q.shape[-1]
+    logf = F.logsigmoid(f_gate.float())
+    ii = i_gate.float()
+    m_new = torch.maximum(logf + m, ii)
+    f_s = torch.exp(logf + m - m_new)[..., None]                # (B,nh,1)
+    i_s = torch.exp(ii - m_new)[..., None]
+    kf, vf, qf = k.float(), v.float(), q.float()
+    C = f_s[..., None] * C + i_s[..., None] * kf[..., :, None] * vf[..., None, :]
+    n = f_s * n + i_s * kf
+    qs = qf * (dh ** -0.5)
+    num = torch.einsum("bhd,bhde->bhe", qs, C)
+    den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", qs, n)),
+                        torch.exp(-m_new))
+    h = num / den[..., None]
+    return (C, n, m_new), h.to(v.dtype)
+
+
+def _mlstm_inputs(x, p):
+    """Pre-norm projections of an mLSTM block: z, q, k, v, i, f."""
+    h = L.rmsnorm(x, p["norm"])
+    up = h @ p["w_up"]
+    z = h @ p["w_z"]
+    q = torch.einsum("bse,ehd->bshd", up, p["w_q"])
+    k = torch.einsum("bse,ehd->bshd", up, p["w_k"])
+    v = torch.einsum("bse,ehd->bshd", up, p["w_v"])
+    gates = torch.einsum("bse,egh->bsgh", up, p["w_if"]) + p["b_if"]
+    return z, q, k, v, gates[:, :, 0], gates[:, :, 1]            # (B,S,nh)
+
+
+def _mlstm_out(x, hh, z, p, di):
+    out = hh.reshape(hh.shape[0], hh.shape[1], di) * F.silu(z)
+    return x + out @ p["w_down"]
+
+
+def _mlstm_seq(q, k, v, i_g, f_g, impl: str):
+    if impl == "kernel":
+        return mlstm_ops.mlstm(q, k, v, i_g, f_g)
+    if impl == "plain":
+        return mlstm_parallel(q, k, v, i_g, f_g)
+    raise ValueError(f"mlstm impl {impl!r} not in ('kernel', 'plain')")
+
+
+def mlstm_block(x, p, cfg, *, state=None):
+    """Pre-norm residual mLSTM block. ``state`` triggers the recurrent path
+    (decode, S==1); returns (out, new_state)."""
+    d, di, nh, dh = _dims(cfg)
+    z, q, k, v, i_g, f_g = _mlstm_inputs(x, p)
+    if state is None:
+        hh = mlstm_ops.mlstm(q, k, v, i_g, f_g)
+        new_state = None
+    else:
+        new_state, h1 = mlstm_step(state, q[:, 0], k[:, 0], v[:, 0],
+                                   i_g[:, 0], f_g[:, 0])
+        hh = h1[:, None]
+    return _mlstm_out(x, hh, z, p, di), new_state
+
+
+def mlstm_final_state(q, k, v, i_gate, f_gate):
+    """Final recurrent state (C, n, m) equivalent to stepping through the
+    sequence -- closed form from the parallel quantities (prefill->decode
+    handoff)."""
+    logf = F.logsigmoid(f_gate.float())
+    cum = torch.cumsum(logf, dim=1)                      # (B,S,nh)
+    ii = i_gate.float()
+    w = cum[:, -1:, :] - cum + ii                        # (B,S,nh)
+    m = torch.amax(w, dim=1)                             # (B,nh)
+    wexp = torch.exp(w - m[:, None, :])
+    kf, vf = k.float(), v.float()
+    C = torch.einsum("bshd,bshe->bhde", wexp[..., None] * kf, vf)
+    n = torch.einsum("bsh,bshd->bhd", wexp, kf)
+    return C, n, m
+
+
+# --------------------------------------------------------------------------
+# sLSTM: sequential (prefill) + single step (decode)
+# --------------------------------------------------------------------------
+def _slstm_cell(carry, gz, r):
+    """carry: (c, n, m, h_prev) each (B,nh,dh); gz: pre-activations
+    (B,4,nh,dh) BEFORE adding recurrence; r: (4,nh,dh,dh)."""
+    c, n, m, h_prev = carry
+    rec = torch.einsum("bhd,ghde->bghe", h_prev, r)
+    zi, zf, zz, zo = [gz[:, j] + rec[:, j] for j in range(4)]
+    log_i = zi.float()
+    log_f = F.logsigmoid(zf.float())
+    m_new = torch.maximum(log_f + m, log_i)
+    i_s = torch.exp(log_i - m_new)
+    f_s = torch.exp(log_f + m - m_new)
+    zt = torch.tanh(zz.float())
+    ot = torch.sigmoid(zo.float())
+    c_new = f_s * c + i_s * zt
+    n_new = f_s * n + i_s
+    h = (ot * c_new / torch.clamp(n_new, min=1e-6)).to(gz.dtype)
+    return (c_new, n_new, m_new, h), h
+
+
+def _slstm_zero_state(B, nh, dh, dtype, device):
+    z0 = torch.zeros((B, nh, dh), dtype=torch.float32, device=device)
+    return (z0, z0, torch.full((B, nh, dh), -torch.inf, device=device),
+            z0.to(dtype))
+
+
+def slstm_block(x, p, cfg, *, state=None):
+    """Sequential sLSTM over time. state (decode): (c, n, m, h_prev).
+    Returns (out, final state)."""
+    B, S, d = x.shape
+    nh = cfg.num_heads
+    dh = d // nh
+    h_in = L.rmsnorm(x, p["norm"])
+    gz = torch.einsum("bsd,dghe->bsghe", h_in, p["w_gates"]) + p["b_gates"]
+    carry = (state if state is not None
+             else _slstm_zero_state(B, nh, dh, x.dtype, x.device))
+    hs = []
+    for t in range(S):
+        carry, h = _slstm_cell(carry, gz[:, t], p["r_gates"])
+        hs.append(h)
+    out = torch.stack(hs, dim=1).reshape(B, S, d)
+    return x + out @ p["w_down"], carry
+
+
+# --------------------------------------------------------------------------
+# Serving state: prefill + decode
+# --------------------------------------------------------------------------
+def _group_params(params: dict, g: int, m: int | None = None) -> dict:
+    if m is None:
+        return {k: w[g] for k, w in params["slstm"].items()}
+    return {k: w[g, m] for k, w in params["mlstm"].items()}
+
+
+def init_xlstm_state(cfg: ModelConfig, batch: int,
+                     device: _device.DeviceLike | None = None) -> dict:
+    """Recurrent decode state (no KV cache -- O(1) in context length)."""
+    dev = _device.resolve(device)
+    d, di, nh, dh = _dims(cfg)
+    dh_s = d // nh
+    G, M = _groups(cfg)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return {
+        "m_C": torch.zeros((G, M, batch, nh, dh, dh), **f32),
+        "m_n": torch.zeros((G, M, batch, nh, dh), **f32),
+        "m_m": torch.zeros((G, M, batch, nh), **f32),
+        "s_c": torch.zeros((G, batch, nh, dh_s), **f32),
+        "s_n": torch.zeros((G, batch, nh, dh_s), **f32),
+        "s_m": torch.full((G, batch, nh, dh_s), -torch.inf, **f32),
+        "s_h": torch.zeros((G, batch, nh, dh_s),
+                           dtype=getattr(torch, cfg.dtype), device=dev),
+        "pos": 0,
+    }
+
+
+def xlstm_prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+                  impl: str = "kernel"):
+    """Process the prompt in parallel, returning last-token logits plus the
+    recurrent state ready for decode.  ``impl`` routes the mLSTM through
+    the kernel (``"kernel"``) or its plain version (``"plain"``)."""
+    d, di, nh, dh = _dims(cfg)
+    G, M = _groups(cfg)
+    x = L.embed_tokens(params["embed"], tokens)
+    states = {k: [] for k in ("m_C", "m_n", "m_m", "s_c", "s_n", "s_m",
+                              "s_h")}
+    for g in range(G):
+        mC, mn, mm = [], [], []
+        for m in range(M):
+            lp = _group_params(params, g, m)
+            z, q, k, v, i_g, f_g = _mlstm_inputs(x, lp)
+            hh = _mlstm_seq(q, k, v, i_g, f_g, impl)
+            C, n, mx = mlstm_final_state(q, k, v, i_g, f_g)
+            x = _mlstm_out(x, hh, z, lp, di)
+            mC.append(C)
+            mn.append(n)
+            mm.append(mx)
+        x, (sc, sn, sm, sh) = slstm_block(x, _group_params(params, g), cfg)
+        for key, val in zip(("m_C", "m_n", "m_m"), (mC, mn, mm)):
+            states[key].append(torch.stack(val))
+        for key, val in zip(("s_c", "s_n", "s_m", "s_h"), (sc, sn, sm, sh)):
+            states[key].append(val)
+    x = L.rmsnorm(x, params["final_norm"])
+    logits = x[:, -1].float() @ params["embed"].float().T
+    state = {k: torch.stack(v) for k, v in states.items()}
+    state["pos"] = tokens.shape[1]
+    return logits, state
+
+
+def xlstm_decode(cfg: ModelConfig, params: dict, state: dict,
+                 tokens: torch.Tensor):
+    """One decode step: tokens (B,1) -> (logits (B,V), new state)."""
+    G, M = _groups(cfg)
+    x = L.embed_tokens(params["embed"], tokens)
+    new = {k: [] for k in ("m_C", "m_n", "m_m", "s_c", "s_n", "s_m", "s_h")}
+    for g in range(G):
+        mC, mn, mm = [], [], []
+        for m in range(M):
+            x, (C, n, mx) = mlstm_block(
+                x, _group_params(params, g, m), cfg,
+                state=(state["m_C"][g, m], state["m_n"][g, m],
+                       state["m_m"][g, m]))
+            mC.append(C)
+            mn.append(n)
+            mm.append(mx)
+        x, (sc, sn, sm, sh) = slstm_block(
+            x, _group_params(params, g), cfg,
+            state=(state["s_c"][g], state["s_n"][g], state["s_m"][g],
+                   state["s_h"][g]))
+        for key, val in zip(("m_C", "m_n", "m_m"), (mC, mn, mm)):
+            new[key].append(torch.stack(val))
+        for key, val in zip(("s_c", "s_n", "s_m", "s_h"), (sc, sn, sm, sh)):
+            new[key].append(val)
+    x = L.rmsnorm(x, params["final_norm"])
+    logits = x.float() @ params["embed"].float().T
+    new_state = {k: torch.stack(v) for k, v in new.items()}
+    new_state["pos"] = state["pos"] + 1
+    return logits[:, 0], new_state

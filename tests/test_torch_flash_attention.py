@@ -1,0 +1,148 @@
+"""The port's flash attention (plain version on the CPU) against the
+reference's Pallas kernel in interpret mode, its oracle ``attention_ref``,
+and the model's einsum GQA attention.
+
+Tolerance: ``rtol = atol = 2e-5`` in f32, the band ``tests/test_kernels.py``
+holds the Pallas kernel to against the same oracle (the plain version sums
+in another order than either).  The shapes are the five of
+``TestFlashAttentionKernel``, plus a prompt length that is not a multiple
+of the Pallas kernel's 128-row tile, which only the port takes.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention.flash_attention import \
+    flash_attention_pallas  # noqa: E402
+from repro.kernels.flash_attention.ops import \
+    flash_attention as pallas_front_door  # noqa: E402
+from repro.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro.models import layers as ref_layers  # noqa: E402
+from repro_torch import device as port_device  # noqa: E402
+from repro_torch import kernels  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
+from repro_torch.models import layers as port_layers  # noqa: E402
+
+TOL = 2e-5
+
+
+@pytest.fixture(autouse=True)
+def _cpu():
+    with port_device.use_device("cpu"):
+        yield
+
+
+def _randn(rng, shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("B,H,S,hd,causal,window", [
+    (1, 2, 256, 64, True, 0),
+    (2, 1, 128, 128, True, 0),
+    (1, 2, 256, 64, True, 64),     # sliding window
+    (1, 1, 256, 64, False, 0),     # bidirectional (whisper encoder)
+    (2, 3, 384, 32, True, 128),
+])
+def test_plain_version_matches_pallas_kernel_and_oracle(B, H, S, hd, causal,
+                                                        window):
+    rng = np.random.default_rng(S + hd)
+    q, k, v = (_randn(rng, (B, H, S, hd)) for _ in range(3))
+    pallas = flash_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), causal=causal,
+                                    window=window, interpret=True)
+    oracle = attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           causal=causal, window=window)
+    plain = flash_ref.attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                                    torch.from_numpy(v), causal=causal,
+                                    window=window).numpy()
+    np.testing.assert_allclose(plain, np.asarray(pallas), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(plain, np.asarray(oracle), rtol=TOL, atol=TOL)
+    # The front door, in the model layout, is the same function.
+    door = flash_ops.flash_attention(
+        *(torch.from_numpy(a).transpose(1, 2) for a in (q, k, v)),
+        causal=causal, window=window).transpose(1, 2).numpy()
+    np.testing.assert_allclose(door, plain, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("S,window", [(128, 0), (200, 0), (200, 48)])
+def test_gqa_front_door_matches_model_attention(S, window):
+    """GQA in the model layout: the port's front door against the
+    reference's einsum ``gqa_attention`` and its Pallas front door (which
+    repeats KV heads), at S=200, not a multiple of the 128-row tile, where
+    the Pallas kernel cannot run."""
+    rng = np.random.default_rng(1 + S + window)
+    B, H, KV, hd = 2, 8, 2, 64
+    q = _randn(rng, (B, S, H, hd))
+    k, v = _randn(rng, (B, S, KV, hd)), _randn(rng, (B, S, KV, hd))
+    pos = jnp.arange(S, dtype=jnp.int32)
+    ref = ref_layers.gqa_attention(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), q_pos=pos, kv_pos=pos,
+                                   causal=True, window=window)
+    got = flash_ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                    torch.from_numpy(v), causal=True,
+                                    window=window).numpy()
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=TOL, atol=TOL)
+    if S % 128 == 0:
+        pallas = pallas_front_door(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), causal=True,
+                                   window=window, interpret=True)
+        np.testing.assert_allclose(got, np.asarray(pallas), rtol=TOL,
+                                   atol=TOL)
+
+
+def test_model_prefill_attention_routes_agree():
+    """``layers.attention`` without ``kv_valid``: the kernel route (its
+    plain version on the CPU) equals the plain route and the decode path's
+    einsum attention; an unknown route raises."""
+    rng = np.random.default_rng(3)
+    B, S, H, KV, hd = 1, 40, 4, 2, 32
+    q = torch.from_numpy(_randn(rng, (B, S, H, hd)))
+    k = torch.from_numpy(_randn(rng, (B, S, KV, hd)))
+    v = torch.from_numpy(_randn(rng, (B, S, KV, hd)))
+    pos = torch.arange(S)
+    outs = [port_layers.attention(q, k, v, q_pos=pos, kv_pos=pos, window=16,
+                                  impl=impl) for impl in ("kernel", "plain")]
+    einsum = port_layers.gqa_attention(q, k, v, q_pos=pos, kv_pos=pos,
+                                       window=16)
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
+    torch.testing.assert_close(outs[0], einsum, rtol=TOL, atol=TOL)
+    with pytest.raises(ValueError, match="impl"):
+        port_layers.attention(q, k, v, q_pos=pos, kv_pos=pos, impl="auto")
+
+
+def test_front_door_on_cpu_builds_nothing(monkeypatch):
+    def _no_build(name):
+        raise AssertionError(f"library {name!r} loaded for a CPU tensor")
+    monkeypatch.setattr(_build, "load", _no_build)
+    kernels.reset_launch_counts()
+    q = torch.zeros((1, 8, 2, 16))
+    flash_ops.flash_attention(q, q, q)
+    assert kernels.launch_counts["flash_attention"] == 0
+    with pytest.raises(ValueError, match="KV heads"):
+        flash_ops.flash_attention(q, torch.zeros((1, 8, 3, 16)),
+                                  torch.zeros((1, 8, 3, 16)))
+
+
+def test_kernel_matches_plain_version_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs this check "
+                    "on the card")
+    rng = np.random.default_rng(4)
+    dev = torch.device("cuda")
+    for S, window in ((256, 0), (300, 64)):
+        q = torch.from_numpy(_randn(rng, (2, S, 8, 64)))
+        k = torch.from_numpy(_randn(rng, (2, S, 4, 64)))
+        v = torch.from_numpy(_randn(rng, (2, S, 4, 64)))
+        got = flash_ops.flash_attention(q.to(dev), k.to(dev), v.to(dev),
+                                        window=window).cpu()
+        want = flash_ref.flash_attention(q, k, v, window=window)
+        torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)

@@ -189,9 +189,9 @@ def test_kernel_backend_on_cpu_runs_the_plain_versions(monkeypatch):
         port_wire.decode_payload_batch(payloads)
         pipe.decode(pipe.encode(stack[2], pipe.new_state()),
                     pipe.new_state())
-    assert kernels.launch_counts == {"fedavg": 0, "quantize": 0,
-                                     "dequantize": 0, "topk_gather": 0,
-                                     "topk_scatter": 0, "checksum": 0}
+    assert {"fedavg", "quantize", "dequantize", "topk_gather",
+            "topk_scatter", "checksum"} <= set(kernels.launch_counts)
+    assert not any(kernels.launch_counts.values()), kernels.launch_counts
 
 
 def test_cuda_without_a_card_raises():
