@@ -53,7 +53,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
 Phase 2 also holds the flash attention and mLSTM kernels against their
 plain versions at the serving shapes and at a 1500-token prompt, in bf16
 and f32, and times the serving shapes beside the bf16 tensor-core bound
-(and, for attention, ``scaled_dot_product_attention``).
+(and, for attention, ``scaled_dot_product_attention``), with achieved
+TFLOP/s and the share of the bound beside each time.  The tensor-core
+flash attention kernel (bf16 at hd 64, 128, 256) is held at hd 64 and
+128 too (1500 tokens, window 1000, GQA); phase 1 prints its ptxas
+registers and spills and its shared memory a CTA, and fails on a spill.
 
 Launch counts are zeroed just before each path (phases 4, 5, the
 checksum pass of 5, and the serving run of 6 and of 7) and read just
@@ -67,6 +71,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -280,6 +285,11 @@ def check_kernels():
             f"{fmt(on_dev)}; {nbytes} bytes, "
             f"{nbytes / on_dev['ms'] / 1e6:.1f} GB/s on the device, bound "
             f"{bnd:.6f} ms ({by}), max_abs_err {err}")
+        if peak_flops == PEAK_BF16_FLOPS:
+            say("    on the device: " + "; ".join(
+                f"{k} {flops / t / 1e9:.1f} TFLOP/s ({bnd / t:.4f} of the "
+                f"bound)" for k, t in on_dev.items()
+                if t is not None and k != "copy_ms"))
         rows.setdefault(name, {})[key] = {
             "shape": list(shape), "ms": per_call["ms"],
             "plain_ms": per_call["plain_ms"],
@@ -608,13 +618,45 @@ def check_lm_kernels(dev, record, rows) -> None:
                     ms = time_ms(lambda: flash_ops.flash_attention(
                         q, k, v, window=window))
                     bnd, by = bound_ms(nbytes, flops, peak)
-                    say(f"    per call {ms:.6f} ms, bound {bnd:.6f} ms ({by})")
+                    say(f"    per call {ms:.6f} ms, {flops / ms / 1e9:.1f} "
+                        f"TFLOP/s ({bnd / ms:.4f} of the bound), bound "
+                        f"{bnd:.6f} ms ({by})")
                     rows.setdefault("flash_attention", {})[
                         f"{key}_{dname}"] = {
                         "shape": [B, S, H, KV, hd, window], "ms": ms,
                         "bound_ms": bnd, "bound_by": by, "bytes": nbytes,
                         "flops": flops, "max_abs_err": err}
                 del q, k, v, out, plain
+    # The tensor-core kernel's other instantiations (bf16 at hd 64, 128):
+    # a prompt no tile divides, a window of 1000 that binds, GQA.
+    B, S, H, KV, window = 1, TAIL_S, 4, 2, 1000
+    tol = LM_BANDS["bfloat16"]["flash_attention"]
+    for hd in (64, 128):
+        q = torch.randn((B, S, H, hd), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((B, S, KV, hd), generator=gen,
+                            device=dev).to(torch.bfloat16) for _ in range(2))
+        out = flash_ops.flash_attention(q, k, v, window=window)
+        plain = flash_ref.flash_attention(q, k, v, window=window)
+        torch.cuda.synchronize()
+        ok, err = _band_check(out, plain, tol)
+        say(f"  flash_attention tail_hd{hd} bfloat16 {(B, S, H, KV, hd)} "
+            f"window {window}: max_abs_err {err} (band {tol})")
+        if not ok:
+            raise AssertionError(f"flash_attention hd {hd} bfloat16: kernel "
+                                 f"outside the band, max |err| {err}")
+        nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+        flops = 4 * hd * B * H * _kept_pairs(S, S, True, window)
+        ms = time_ms(lambda: flash_ops.flash_attention(q, k, v,
+                                                       window=window))
+        bnd, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+        say(f"    per call {ms:.6f} ms, {flops / ms / 1e9:.1f} TFLOP/s "
+            f"({bnd / ms:.4f} of the bound), bound {bnd:.6f} ms ({by})")
+        rows.setdefault("flash_attention", {})[f"tail_hd{hd}_bfloat16"] = {
+            "shape": [B, S, H, KV, hd, window], "ms": ms, "bound_ms": bnd,
+            "bound_by": by, "bytes": nbytes, "flops": flops,
+            "max_abs_err": err}
+        del q, k, v, out, plain
 
     # xlstm-350m prefill: q/k/v (4, P, 4, 512) (dh = 2 * d_model / nh),
     # gate logits (4, P, 4).
@@ -884,12 +926,13 @@ def _state_errors(cache, plain) -> dict:
     return out
 
 
-def _device_profile(label: str, fn) -> dict:
+def _device_profile(label: str, fn, kernel: str) -> dict:
     """Run ``fn()`` once under ``torch.profiler`` and print where the card's
     time went: the wall time (profiler overhead included), the device busy
     time (kernels and copies on the card; one stream, so they do not
-    overlap), its share of the wall, the kernel count and the five
-    costliest kernels."""
+    overlap), its share of the wall, the kernel count, the five costliest
+    kernels, and the time and share of the port's kernels whose names
+    contain ``kernel``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -912,6 +955,11 @@ def _device_profile(label: str, fn) -> dict:
     say(f"  {label} under the profiler: wall {wall:.6f} s, device busy "
         f"{busy_ms:.3f} ms (idle share {out['idle_share']:.4f}), "
         f"{launches} kernels and copies; top: {json.dumps(out['top'])}")
+    mine = [e for e in rows if kernel in e.key]
+    mine_ms = sum(e.self_device_time_total for e in mine) / 1e3
+    say(f"    {kernel} kernels: {mine_ms:.3f} ms over "
+        f"{sum(e.count for e in mine)} launches, "
+        f"{mine_ms / busy_ms:.4f} of the busy time")
     return out
 
 
@@ -1065,11 +1113,13 @@ def run_lm_path(arch: str) -> tuple[dict, dict]:
     for b in range(B):
         say(f"  seq{b}: {tokens[b].tolist()}")
     with torch.no_grad():
+        name = spec["kernel"].split("_")[0]    # flash / mlstm
         prof = {"prefill": _device_profile(
-                    "prefill", lambda: prefill(params, {"tokens": prompt})),
+                    "prefill", lambda: prefill(params, {"tokens": prompt}),
+                    name),
                 "decode": _device_profile(
                     "2 decode steps", lambda: [decode(params, cache, tok)
-                                               for _ in range(2)])}
+                                               for _ in range(2)], name)}
     del cache
     if counts[spec["kernel"]] != spec["per_prefill"]:
         raise AssertionError(f"{arch}: {counts[spec['kernel']]} "
@@ -1146,6 +1196,46 @@ def run_serve_cli() -> None:
     say(f"  serve exited 0 in {time.perf_counter() - t0:.3f} s")
 
 
+def _ptxas_lines(log: str) -> list[tuple[str, str]]:
+    """(kernel, line) for each register, spill and wgmma line of an
+    ``nvcc -Xptxas=-v`` log; the kernel as ``name<template args>``."""
+    out, entry = [], "?"
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(_Z\w+)", line)
+        if m:
+            mangled = m.group(1)
+            args = re.findall(r"Li(\d+)E", mangled)
+            dtype = ("bf16," if "bfloat16" in mangled else
+                     "f32," if re.search(r"IfLi", mangled) else "")
+            name = re.search(r"[a-z][a-z_]*_kernel", mangled)
+            entry = (f"{name.group(0)}<{dtype}{','.join(args)}>" if name
+                     else mangled[:60])
+        elif "registers" in line or "spill" in line or "wgmma" in line:
+            out.append((entry, line.strip().removeprefix("ptxas info    : ")))
+    return out
+
+
+def _say_wgmma_resources() -> None:
+    """The tensor-core flash attention kernel's registers and spills (from
+    ptxas) and dynamic shared memory a CTA, at each head width."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    log = (_build.BUILD_DIR / "flash_attention.log").read_text()
+    lines = _ptxas_lines(log)
+    for hd in (64, 128, 256):
+        mine = [line for entry, line in lines
+                if entry.startswith(f"flash_wgmma_kernel<bf16,{hd},")]
+        say(f"  flash_wgmma_kernel hd {hd}: {'; '.join(mine)}; dynamic smem "
+            f"{flash_ops.smem_bytes(torch.bfloat16, hd)} bytes a CTA")
+        spills = [int(n) for line in mine
+                  for n in re.findall(r"(\d+) bytes spill", line)]
+        if not spills or any(spills):
+            raise AssertionError(f"flash_wgmma_kernel hd {hd}: spills, or "
+                                 f"no ptxas lines: {mine}")
+
+
 def main() -> int:
     import torch
 
@@ -1168,9 +1258,9 @@ def main() -> int:
     for name in sorted(per):
         log = _build.BUILD_DIR / f"{name}.log"
         if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    say(f"  ptxas {name}: {line.strip()}")
+            for entry, line in _ptxas_lines(log.read_text()):
+                say(f"  ptxas {name} {entry}: {line}")
+    _say_wgmma_resources()
 
     say("[2] kernels against their plain versions")
     rows = check_kernels()

@@ -3,8 +3,9 @@
 Each family's ``csrc/*.cu`` compiles with ``nvcc`` into its own shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds), loaded with ``ctypes``.  Libraries go to ``build/torch_kernels/``
-at the root of the checkout, named by a hash of the source and the flags,
-so an edited source rebuilds and an unchanged one is reused.  A missing
+at the root of the checkout, named by a hash of the source, the headers
+beside it and the flags, so an edited source or header rebuilds and an
+unchanged one is reused.  A missing
 ``nvcc`` or a failed build raises :class:`~repro_torch.kernels.KernelError`:
 there is no fallback.
 """
@@ -52,10 +53,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``name``'s library lives for the current source and flags."""
-    src = (_PKG / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where ``name``'s library lives for the current source, the headers
+    beside it (``*.cuh``, ``*.h`` in its ``csrc/``) and the flags."""
+    src = _PKG / SOURCES[name]
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted([*src.parent.glob("*.cuh"), *src.parent.glob("*.h")]):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> dict[str, float]:

@@ -6,7 +6,10 @@ On CUDA tensors it launches ``csrc/flash_attention.cu`` (``hd`` in 64, 128,
 256, 512) and counts the launch in
 :data:`repro_torch.kernels.launch_counts`; on CPU tensors it runs the plain
 version in :mod:`repro_torch.kernels.flash_attention.ref`.  It never falls
-back from one to the other.
+back from one to the other.  The C launcher picks the kernel by (dtype,
+hd): bf16 at hd 64, 128 and 256 runs on the tensor cores (wgmma fed by
+TMA, whose tensor maps want 16-byte aligned bases), f32 and bf16 at hd 512
+on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -33,8 +36,16 @@ def _lib():
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.flash_attention_fwd.restype = ctypes.c_int
+        lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.flash_attention_smem_bytes.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def smem_bytes(dtype: torch.dtype, hd: int) -> int:
+    """Dynamic shared memory of one CTA of the kernel that ``dtype`` and
+    ``hd`` route to (builds and loads the library)."""
+    return _lib().flash_attention_smem_bytes(_DTYPES[dtype], hd)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -75,7 +86,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if T == 0 or B * H > 65535:
         raise ValueError(f"flash_attention: T={T}, B*H={B * H} out of the "
                          f"kernel's range")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (t.contiguous() if t.data_ptr() % 16 == 0 else t.clone(
+        memory_format=torch.contiguous_format) for t in (q, k, v))
     out = torch.empty_like(q)
     if S == 0 or B == 0:
         return out

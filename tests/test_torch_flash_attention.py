@@ -4,9 +4,12 @@ and the model's einsum GQA attention.
 
 Tolerance: ``rtol = atol = 2e-5`` in f32, the band ``tests/test_kernels.py``
 holds the Pallas kernel to against the same oracle (the plain version sums
-in another order than either).  The shapes are the five of
-``TestFlashAttentionKernel``, plus a prompt length that is not a multiple
-of the Pallas kernel's 128-row tile, which only the port takes.
+in another order than either), and ``3e-2`` in bf16, the band of its
+``test_dtypes`` (p is rounded to bf16 before the PV product on both sides,
+under running maxima that differ tile by tile).  The shapes are the five
+of ``TestFlashAttentionKernel``, plus a prompt length that is not a
+multiple of the Pallas kernel's 128-row tile, which only the port takes.
+bf16 is the route the card's tensor-core kernel takes (hd 64, 128, 256).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
 from repro_torch.models import layers as port_layers  # noqa: E402
 
 TOL = 2e-5
+BF16_TOL = 3e-2
 
 
 @pytest.fixture(autouse=True)
@@ -71,6 +75,32 @@ def test_plain_version_matches_pallas_kernel_and_oracle(B, H, S, hd, causal,
         *(torch.from_numpy(a).transpose(1, 2) for a in (q, k, v)),
         causal=causal, window=window).transpose(1, 2).numpy()
     np.testing.assert_allclose(door, plain, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,window", [
+    (2, 256, 4, 2, 64, 0),       # GQA in the model layout
+    (1, 384, 4, 2, 64, 100),     # a window no tile divides
+    (1, 384, 4, 2, 128, 100),
+    (2, 256, 4, 1, 128, 0),
+])
+def test_plain_version_matches_pallas_kernel_in_bf16(B, S, H, KV, hd,
+                                                     window):
+    """bf16 in the model layout: the port's front door (its plain version
+    on the CPU) against the reference's Pallas front door in interpret
+    mode, on the same bf16 values."""
+    rng = np.random.default_rng(10 + S + hd + window)
+    q = _randn(rng, (B, S, H, hd))
+    k, v = _randn(rng, (B, S, KV, hd)), _randn(rng, (B, S, KV, hd))
+    pallas = pallas_front_door(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), causal=True,
+        window=window, interpret=True)
+    got = flash_ops.flash_attention(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+        causal=True, window=window)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(pallas, np.float32),
+                               rtol=BF16_TOL, atol=BF16_TOL)
 
 
 @pytest.mark.parametrize("S,window", [(128, 0), (200, 0), (200, 48)])
@@ -133,6 +163,9 @@ def test_front_door_on_cpu_builds_nothing(monkeypatch):
 
 
 def test_kernel_matches_plain_version_on_the_card():
+    """f32 (the CUDA-core kernel) at 2e-5, and bf16 at hd 64, 128, 256
+    (the tensor-core kernel) and 512 (the CUDA-core kernel) within the
+    bf16 band, with prompts no 128-row tile divides and windows."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py runs this check "
                     "on the card")
@@ -146,3 +179,25 @@ def test_kernel_matches_plain_version_on_the_card():
                                         window=window).cpu()
         want = flash_ref.flash_attention(q, k, v, window=window)
         torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+    for hd, S, window, causal in ((64, 300, 100, True), (128, 200, 0, True),
+                                  (128, 333, 1000, True), (256, 300, 64, True),
+                                  (256, 128, 0, False), (512, 100, 0, True)):
+        q, k, v = (torch.from_numpy(_randn(rng, (2, S, n, hd))).to(
+            torch.bfloat16) for n in (4, 2, 2))
+        got = flash_ops.flash_attention(q.to(dev), k.to(dev), v.to(dev),
+                                        causal=causal, window=window).cpu()
+        want = flash_ref.flash_attention(q, k, v, causal=causal,
+                                         window=window)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=BF16_TOL, atol=BF16_TOL)
+    # A base address off the 16-byte grid (TMA's tensor maps refuse one):
+    # the front door copies the input first.
+    q, k, v = (torch.from_numpy(_randn(rng, (1, 64, n, 128))).to(
+        torch.bfloat16) for n in (2, 1, 1))
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=dev)
+    q_off = flat[1:].view(q.shape).copy_(q)
+    assert q_off.data_ptr() % 16
+    got = flash_ops.flash_attention(q_off, k.to(dev), v.to(dev)).cpu()
+    torch.testing.assert_close(got.float(),
+                               flash_ref.flash_attention(q, k, v).float(),
+                               rtol=BF16_TOL, atol=BF16_TOL)

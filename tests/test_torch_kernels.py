@@ -15,6 +15,8 @@ reference's host numpy path and its Pallas kernels (interpret mode).
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 import pytest
 
@@ -260,6 +262,31 @@ def test_build_keys_libraries_by_source_and_raises_without_nvcc(
     (tmp_path / "out").mkdir()
     _build.library_path("k").touch()
     assert _build.build(["k"]) == {"k": 0.0}   # up to date: nothing runs
+
+
+def test_library_path_hashes_the_headers_beside_the_source(tmp_path,
+                                                        monkeypatch):
+    """An edited or added header under a family's ``csrc/`` rebuilds its
+    library; a family without headers keeps the key of its source and
+    flags alone."""
+    csrc = tmp_path / "fam" / "csrc"
+    csrc.mkdir(parents=True)
+    (csrc / "fam.cu").write_text('#include "util.cuh"\n')
+    (csrc / "util.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "_PKG", tmp_path)
+    monkeypatch.setitem(_build.SOURCES, "fam", "fam/csrc/fam.cu")
+    first = _build.library_path("fam")
+    assert _build.library_path("fam") == first
+    (csrc / "util.cuh").write_text("// v2\n")
+    second = _build.library_path("fam")
+    assert second != first
+    (csrc / "extra.h").write_text("// new\n")
+    assert _build.library_path("fam") != second
+    (csrc / "util.cuh").unlink()
+    (csrc / "extra.h").unlink()
+    flags = " ".join(_build.NVCC_FLAGS).encode()
+    digest = hashlib.sha256(b'#include "util.cuh"\n' + flags).hexdigest()
+    assert _build.library_path("fam").name == f"fam-{digest[:16]}.so"
 
 
 # --------------------------------------------------------------------------
