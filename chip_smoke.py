@@ -56,8 +56,14 @@ and f32, and times the serving shapes beside the bf16 tensor-core bound
 (and, for attention, ``scaled_dot_product_attention``), with achieved
 TFLOP/s and the share of the bound beside each time.  The tensor-core
 flash attention kernel (bf16 at hd 64, 128, 256) is held at hd 64 and
-128 too (1500 tokens, window 1000, GQA); phase 1 prints its ptxas
-registers and spills and its shared memory a CTA, and fails on a spill.
+128 too (1500 tokens, window 1000, GQA).  The tensor-core mLSTM kernel
+(bf16 at dh 512) is held at S = 1, 63, 65 and 200 too, and with a q base
+off the 16-byte grid; at the serving shapes it is also timed alone on
+the device (the bare launch, without the wrapper's gate terms), and the
+bf16 error is printed against the f32 plain version and against the
+plain version in the kernel's own form.  Phase 1 prints each
+tensor-core kernel's ptxas registers and spills and its shared memory a
+CTA, and fails on a spill.
 
 Launch counts are zeroed just before each path (phases 4, 5, the
 checksum pass of 5, and the serving run of 6 and of 7) and read just
@@ -553,6 +559,27 @@ def _band_check(got, want, band: float,
     return bool((d <= band * (1 + scale)).all()), float(d.max())
 
 
+def _mlstm_kernel_alone(rec, q, k, v, ig, fg, flops, nbytes) -> None:
+    """The tensor-core mLSTM kernel alone on the device: the bare launch
+    on gate terms formed once (the wrapper's record times them too); into
+    ``rec``."""
+    import torch
+    from repro_torch.kernels.mlstm import ops as mlstm_ops
+
+    lib = mlstm_ops._lib()
+    g, m, floor = mlstm_ops.gate_terms(ig, fg)
+    out = torch.empty_like(v)
+    B, S, nh, dh = q.shape
+    bnd, _ = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+    t = rec["kernel_alone_ms"] = device_ms(lambda: lib.mlstm_wgmma_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), m.data_ptr(),
+        floor.data_ptr(), out.data_ptr(), B, S, nh, dh, dh ** -0.5,
+        torch.cuda.current_stream().cuda_stream))
+    say(f"    kernel alone: device {t:.6f} ms, {flops / t / 1e9:.1f} TFLOP/s "
+        f"({bnd / t:.4f} of the bound)")
+    del g, m, floor, out
+
+
 def check_lm_kernels(dev, record, rows) -> None:
     """Phase 2 for the LM kernels (flash attention, chunkwise mLSTM) at
     the serving paths' shapes and at a prompt no tile divides, in bf16 and
@@ -659,7 +686,8 @@ def check_lm_kernels(dev, record, rows) -> None:
         del q, k, v, out, plain
 
     # xlstm-350m prefill: q/k/v (4, P, 4, 512) (dh = 2 * d_model / nh),
-    # gate logits (4, P, 4).
+    # gate logits (4, P, 4).  bf16 takes the tensor-core kernel, f32 the
+    # CUDA-core one.
     B, nh, dh = 4, 4, 512
     for S in (LM_PATHS["xlstm-350m"]["prompt"], TAIL_S):
         for dtype in (torch.bfloat16, torch.float32):
@@ -677,14 +705,23 @@ def check_lm_kernels(dev, record, rows) -> None:
             ok, err = _band_check(out, plain, LM_BANDS[dname]["mlstm"],
                                   row_scale=dtype == torch.bfloat16)
             # Context for the bf16 band: each against the f32 plain
-            # version on the same (bf16-valued) inputs.
+            # version on the same (bf16-valued) inputs, and the kernel
+            # against the plain version in its own form (the stabiliser
+            # known up front, so s rounds to bf16 under the same one).
             exact = mlstm_ref.mlstm_parallel(
                 *(t.float() for t in (q, k, v, ig, fg)))
+            known = ""
+            if dtype == torch.bfloat16:
+                form = mlstm_ref.mlstm_known_stabiliser(
+                    q, k, v, *mlstm_ops.gate_terms(ig, fg))
+                known = (f", against the known-stabiliser plain form "
+                         f"{float((out.float() - form.float()).abs().max())}")
+                del form
             say(f"  mlstm {key} {dname} {(B, S, nh, dh)}: max_abs_err "
                 f"{err} (band {LM_BANDS[dname]['mlstm']}); against f32: "
                 f"kernel {float((out.float() - exact).abs().max())}, plain "
                 f"{float((plain.float() - exact).abs().max())}, max |out| "
-                f"{float(exact.abs().max())}")
+                f"{float(exact.abs().max())}{known}")
             del exact
             if not ok:
                 raise AssertionError(f"mlstm {key} {dname}: kernel outside "
@@ -694,11 +731,13 @@ def check_lm_kernels(dev, record, rows) -> None:
             flops = 4 * dh * B * nh * _kept_pairs(S, S, True, 0)
             peak = (PEAK_BF16_FLOPS if dtype == torch.bfloat16
                     else PEAK_F32_FLOPS)
-            if dtype == torch.bfloat16 and key == "path":
+            if dtype == torch.bfloat16:
                 record("mlstm", key, (B, S, nh, dh), nbytes, flops,
                        lambda: mlstm_ops.mlstm(q, k, v, ig, fg),
                        lambda: mlstm_ref.mlstm_parallel(q, k, v, ig, fg),
                        None, err, peak_flops=peak)
+                _mlstm_kernel_alone(rows["mlstm"][key], q, k, v, ig, fg,
+                                    flops, nbytes)
             else:
                 ms = time_ms(lambda: mlstm_ops.mlstm(q, k, v, ig, fg))
                 bnd, by = bound_ms(nbytes, flops, peak)
@@ -708,6 +747,36 @@ def check_lm_kernels(dev, record, rows) -> None:
                     "bound_by": by, "bytes": nbytes, "flops": flops,
                     "max_abs_err": err}
             del q, k, v, ig, fg, out, plain
+    # The tensor-core route's edges: S under one tile and one row either
+    # side of a tile's end, and a q base off the 16-byte grid (the wrapper
+    # copies it for TMA).
+    B, tol = 2, LM_BANDS["bfloat16"]["mlstm"]
+    for S in (1, 63, 65, 200):
+        q, k, v = (torch.randn((B, S, nh, dh), generator=gen,
+                               device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        ig = torch.randn((B, S, nh), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        fg = (torch.randn((B, S, nh), generator=gen, device=dev)
+              + 2.0).to(torch.bfloat16)
+        q_off = torch.empty(q.numel() + 8, dtype=q.dtype,
+                            device=dev)[1:1 + q.numel()].view_as(q)
+        q_off.copy_(q)
+        plain = mlstm_ref.mlstm_parallel(q, k, v, ig, fg)
+        errs = {}
+        for name, qq in (("", q), (", q off the 16-byte grid", q_off)):
+            ok, errs[name] = _band_check(mlstm_ops.mlstm(qq, k, v, ig, fg),
+                                         plain, tol, row_scale=True)
+            if not ok:
+                raise AssertionError(f"mlstm edge S={S}{name}: kernel "
+                                     f"outside the band, max |err| "
+                                     f"{errs[name]}")
+        say(f"  mlstm edge_{S} bfloat16 {(B, S, nh, dh)}: max_abs_err "
+            + "".join(f"{name} {e}" for name, e in errs.items())
+            + f" (band {tol})")
+        rows["mlstm"][f"edge_{S}_bfloat16"] = {
+            "shape": [B, S, nh, dh], "max_abs_err": max(errs.values())}
+        del q, k, v, ig, fg, q_off, plain
     torch.cuda.empty_cache()
 
 
@@ -1217,23 +1286,28 @@ def _ptxas_lines(log: str) -> list[tuple[str, str]]:
 
 
 def _say_wgmma_resources() -> None:
-    """The tensor-core flash attention kernel's registers and spills (from
-    ptxas) and dynamic shared memory a CTA, at each head width."""
+    """Each tensor-core kernel's registers and spills (from ptxas) and
+    dynamic shared memory a CTA: flash attention at each head width, the
+    mLSTM at dh 512; fails on a spill."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    log = (_build.BUILD_DIR / "flash_attention.log").read_text()
-    lines = _ptxas_lines(log)
-    for hd in (64, 128, 256):
-        mine = [line for entry, line in lines
-                if entry.startswith(f"flash_wgmma_kernel<bf16,{hd},")]
-        say(f"  flash_wgmma_kernel hd {hd}: {'; '.join(mine)}; dynamic smem "
-            f"{flash_ops.smem_bytes(torch.bfloat16, hd)} bytes a CTA")
+    from repro_torch.kernels.mlstm import ops as mlstm_ops
+    cases = [("flash_attention", f"flash_wgmma_kernel<bf16,{hd},",
+              f"flash_wgmma_kernel hd {hd}",
+              flash_ops.smem_bytes(torch.bfloat16, hd)) for hd in (64, 128, 256)]
+    cases.append(("mlstm", "mlstm_wgmma_kernel<bf16,", "mlstm_wgmma_kernel dh 512",
+                  mlstm_ops.smem_bytes()))
+    lines = {fam: _ptxas_lines((_build.BUILD_DIR / f"{fam}.log").read_text())
+             for fam in ("flash_attention", "mlstm")}
+    for fam, prefix, label, smem in cases:
+        mine = [line for entry, line in lines[fam] if entry.startswith(prefix)]
+        say(f"  {label}: {'; '.join(mine)}; dynamic smem {smem} bytes a CTA")
         spills = [int(n) for line in mine
                   for n in re.findall(r"(\d+) bytes spill", line)]
         if not spills or any(spills):
-            raise AssertionError(f"flash_wgmma_kernel hd {hd}: spills, or "
-                                 f"no ptxas lines: {mine}")
+            raise AssertionError(f"{label}: spills, or no ptxas lines: "
+                                 f"{mine}")
 
 
 def main() -> int:
@@ -1325,6 +1399,7 @@ def main() -> int:
                     "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                     "bound_by": rec["bound_by"],
                     "library_ms": rec["library_ms"], "shape": rec["shape"],
+                    "kernel_alone_ms": rec.get("kernel_alone_ms"),
                     "bytes": rec["bytes"],
                     "copy_bound_ms": rec["copy_bound_ms"],
                     "device": rec["device"],

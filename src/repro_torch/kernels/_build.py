@@ -2,10 +2,13 @@
 
 Each family's ``csrc/*.cu`` compiles with ``nvcc`` into its own shared
 library with a plain C interface (no PyTorch headers, so a build takes
-seconds), loaded with ``ctypes``.  Libraries go to ``build/torch_kernels/``
-at the root of the checkout, named by a hash of the source, the headers
-beside it and the flags, so an edited source or header rebuilds and an
-unchanged one is reused.  A missing
+seconds), loaded with ``ctypes``.  Headers shared by several families
+(the Hopper primitives, the TMA tensor maps) live in ``kernels/csrc/``,
+on the include path of every build.  Libraries go to
+``build/torch_kernels/`` at the root of the checkout, named by a hash of
+the source, the headers beside it, the shared headers it includes and
+the flags, so an edited source or header rebuilds and an unchanged one is
+reused.  A missing
 ``nvcc`` or a failed build raises :class:`~repro_torch.kernels.KernelError`:
 there is no fallback.
 """
@@ -15,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -24,6 +28,8 @@ from typing import Iterable, Optional
 from repro_torch.kernels import KernelError
 
 _PKG = Path(__file__).resolve().parent
+#: the shared headers' folder, under ``_PKG``
+SHARED = "csrc"
 BUILD_DIR = _PKG.parents[2] / "build" / "torch_kernels"
 
 #: family name -> its CUDA source, relative to this package.
@@ -52,13 +58,40 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _shared_headers(files: list[Path]) -> list[Path]:
+    """The shared headers that ``files`` include, directly or through one
+    another, in a fixed order.  A quoted include resolves as ``nvcc``
+    resolves it: beside the including file first, then in the shared
+    folder."""
+    shared, found, todo = _PKG / SHARED, set(), list(files)
+    while todo:
+        f = todo.pop()
+        for inc in _INCLUDE.findall(f.read_bytes()):
+            header = f.parent / inc.decode()
+            if not header.is_file():
+                header = shared / inc.decode()
+            if header.parent == shared and header.is_file() \
+                    and header not in found:
+                found.add(header)
+                todo.append(header)
+    return sorted(found)
+
+
 def library_path(name: str) -> Path:
     """Where ``name``'s library lives for the current source, the headers
-    beside it (``*.cuh``, ``*.h`` in its ``csrc/``) and the flags."""
+    beside it (``*.cuh``, ``*.h`` in its ``csrc/``), the shared headers it
+    includes and the flags."""
     src = _PKG / SOURCES[name]
     digest = hashlib.sha256(src.read_bytes())
-    for header in sorted([*src.parent.glob("*.cuh"), *src.parent.glob("*.h")]):
+    beside = sorted([*src.parent.glob("*.cuh"), *src.parent.glob("*.h")])
+    for header in beside:
         digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    for header in _shared_headers([src, *beside]):
+        digest.update(f"{SHARED}/{header.name}".encode() + b"\0"
+                      + header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
@@ -81,7 +114,7 @@ def build(names: Optional[Iterable[str]] = None) -> dict[str, float]:
         for name in todo:
             target = library_path(name)
             tmp = target.with_suffix(f".tmp{os.getpid()}.so")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+            cmd = [nvcc, *NVCC_FLAGS, f"-I{_PKG / SHARED}", "-o", str(tmp),
                    str(_PKG / SOURCES[name])]
             with open(BUILD_DIR / f"{name}.log", "w") as log:
                 proc = subprocess.Popen(cmd, stdout=log,

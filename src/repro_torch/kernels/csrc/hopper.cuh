@@ -1,6 +1,8 @@
-// Hopper (sm_90a) building blocks, as inline PTX: mbarriers, TMA tile loads,
-// wgmma shared-memory descriptors and the bf16 wgmma products the flash
-// attention kernel issues.  Header only; included by the kernels' .cu files.
+// Hopper (sm_90a) building blocks, as inline PTX: mbarriers, named
+// barriers, TMA tile loads, wgmma shared-memory descriptors and the bf16
+// wgmma products the flash attention and mLSTM kernels issue.  Header only;
+// included by the kernels' .cu files (the host side of TMA is in
+// tensor_map.h).
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: a tile
 // of R rows x 64 bf16 (128 bytes a row) is R/8 atoms of 8 rows x 128 bytes,
@@ -65,6 +67,13 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// ---- named barriers ---------------------------------------------------------
+// Wait until `threads` threads (a multiple of 32) have reached barrier `id`
+// (1-15; 0 is __syncthreads'), then go on.
+__device__ __forceinline__ void named_barrier_sync(uint32_t id, uint32_t threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ---- TMA --------------------------------------------------------------------
 // One box of a rank-4 tensor map into shared memory, completing on `bar`.
 // Coordinates are innermost first; rows past the tensor's extent are
@@ -85,6 +94,15 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo_bytes
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// x, as a value the compiler cannot see through: descriptors built from it
+// inside a loop are rebuilt at each use, not hoisted out of the loop and
+// kept in registers (16 k-steps of two 64-bit descriptors would hold 64).
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  uint32_t y;
+  asm volatile("mov.b32 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
 }
 
 __device__ __forceinline__ void wgmma_fence() {

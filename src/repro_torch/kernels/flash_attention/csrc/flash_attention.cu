@@ -53,13 +53,12 @@
 // visited.  A tail tile (S or T not a multiple of the tile) loads zeros and
 // masks them.
 
-#include <cuda.h>
-#include <dlfcn.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "tensor_map.h"
 
 namespace {
 
@@ -651,50 +650,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// cuTensorMapEncodeTiled from the driver the process already loaded (no
-// link against libcuda at build time).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_LAZY | RTLD_LOCAL);
-    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"))
-               : nullptr;
-  }();
-  return fn;
-}
-
-// Rank-4 map over a (batch, rows, heads, hd) bf16 tensor, innermost first,
-// boxes of box_rows rows x 64 columns of one head in the 128-byte swizzle.
-bool encode_map(EncodeTiled enc, CUtensorMap* map, const void* base, int hd, int heads,
-                int rows, int batch, int box_rows) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t row_bytes = static_cast<cuuint64_t>(hd) * 2;
-  const cuuint64_t strides[3] = {row_bytes, row_bytes * heads, row_bytes * heads * rows};
-  const cuuint32_t box[4] = {kChunk, 1, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int HD, int BK, int ST>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int S,
                  int Tk, int H, int KV, int causal, int window, float scale,
                  cudaStream_t stream) {
-  const EncodeTiled enc = encode_tiled();
+  const hopper::EncodeTiled enc = hopper::encode_tiled();
   if (enc == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   CUtensorMap qmap, kmap, vmap;
-  if (!encode_map(enc, &qmap, q, HD, H, S, B, 64) ||
-      !encode_map(enc, &kmap, k, HD, KV, Tk, B, BK) ||
-      !encode_map(enc, &vmap, v, HD, KV, Tk, B, BK))
+  if (!hopper::encode_map(enc, &qmap, q, HD, H, S, B, 64) ||
+      !hopper::encode_map(enc, &kmap, k, HD, KV, Tk, B, BK) ||
+      !hopper::encode_map(enc, &vmap, v, HD, KV, Tk, B, BK))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = WgmmaSmem<HD, BK, ST>::kBytes;
   auto kernel = flash_wgmma_kernel<HD, BK, ST>;

@@ -289,6 +289,48 @@ def test_library_path_hashes_the_headers_beside_the_source(tmp_path,
     assert _build.library_path("fam").name == f"fam-{digest[:16]}.so"
 
 
+def test_library_path_hashes_the_shared_headers_a_source_includes(
+        tmp_path, monkeypatch):
+    """An edited shared header (``kernels/csrc/``) rebuilds every family
+    that includes it, directly or through another shared header, and no
+    other; a header beside a source shadows a shared one of its name."""
+    shared = tmp_path / _build.SHARED
+    shared.mkdir()
+    (shared / "prims.cuh").write_text('#include "maps.h"\n// v1\n')
+    (shared / "maps.h").write_text("// v1\n")
+    for fam, text in (("one", '#include "prims.cuh"\n'),
+                      ("two", '#  include "maps.h"\n'),
+                      ("three", '#include "local.cuh"\n')):
+        csrc = tmp_path / fam / "csrc"
+        csrc.mkdir(parents=True)
+        (csrc / f"{fam}.cu").write_text(text)
+        monkeypatch.setitem(_build.SOURCES, fam, f"{fam}/csrc/{fam}.cu")
+    (tmp_path / "three" / "csrc" / "local.cuh").write_text("// local\n")
+    monkeypatch.setattr(_build, "_PKG", tmp_path)
+    keys = {fam: _build.library_path(fam) for fam in ("one", "two", "three")}
+    (shared / "maps.h").write_text("// v2\n")
+    after = {fam: _build.library_path(fam) for fam in keys}
+    assert after["one"] != keys["one"] and after["two"] != keys["two"]
+    assert after["three"] == keys["three"]
+    (shared / "prims.cuh").write_text('#include "maps.h"\n// v2\n')
+    again = {fam: _build.library_path(fam) for fam in keys}
+    assert again["one"] != after["one"]
+    assert again["two"] == after["two"] and again["three"] == keys["three"]
+    (shared / "local.cuh").write_text("// shadowed\n")
+    assert _build.library_path("three") == keys["three"]
+
+
+def test_tma_families_hash_the_shared_hopper_headers():
+    """Both families that issue wgmma fed by TMA include the shared
+    Hopper primitives and tensor-map helper; the others include neither."""
+    names = {fam: [h.name for h in _build._shared_headers(
+        [_build._PKG / src])] for fam, src in _build.SOURCES.items()}
+    for fam in ("flash_attention", "mlstm"):
+        assert names[fam] == ["hopper.cuh", "tensor_map.h"], fam
+    assert not any(names[fam] for fam in ("fedavg", "quantize", "topk",
+                                           "checksum"))
+
+
 # --------------------------------------------------------------------------
 # On the card: each kernel against its plain version (skipped without one)
 # --------------------------------------------------------------------------
