@@ -46,9 +46,32 @@ Phases, each printed on its own lines; any failure exits non-zero:
    width 512): B=4 x 2048 tokens (the chunkwise mLSTM kernel, 21
    launches), 16 greedy steps from the recurrent state, holds (a)-(c) with
    the recurrent decode in (b); then ``python -m repro_torch.launch.serve
-   --arch xlstm-350m --device cuda`` as a subprocess must exit 0.
-8. A JSON line with every kernel's numbers, the card line again, and the
-   result line ``{"ok": true, "device": {...}}`` last.
+   --arch xlstm-350m --device cuda``, and ``serve --smoke`` for both
+   models (head widths 16 and 32), as subprocesses must exit 0.
+8. xlstm-350m training at full width (0.47 B bf16 parameters, AdamW with
+   float32 moments, B=4 x 128 tokens): ``python -m
+   repro_torch.launch.train`` for 3 steps with a checkpoint directory,
+   then again to step 6, which must resume from step 3; then in process
+   the step's s/step, tokens/s, peak memory, device idle share over two
+   profiled steps and model-FLOP rate (6 N tokens, an estimate); then the
+   train step on the card against the same step on the CPU at smoke size
+   in float32, for xlstm-350m and gemma3-12b (loss, grad norm, the
+   updated parameters).  No kernel may launch on the training path.
+9. ``repro_torch.fl_train_lm --scale 100m`` (140.6 M float32 parameters
+   a client): 3 clients over WAN links at 5% uplink loss, int8 deltas
+   with error feedback through the quantize and dequantize kernels, the
+   server's mean through the fedavg kernel, a checkpoint and the journal
+   every round, LMFL_ROUNDS rounds.  Per round: the reference's line, the
+   wall and its split (local steps, int8 encode/decode, checkpoint save);
+   the three kernels' launches and calls by shape.  It must aggregate at
+   least 2 of 3 clients a round, end below the first eval NLL, and the
+   journal must resume at the next round.  Then ``--scale tiny`` on the
+   card and on the CPU: identical round records, NLL within NLL_TOL; and
+   one round of one local step on each, whose moves of the global model
+   must agree within PARAM_TOL (a run with no-op local steps must not).
+10. A JSON line with every kernel's numbers, one with phases 8 and 9's,
+   the card line again, and the result line ``{"ok": true, "device":
+   {...}}`` last.
 
 Phase 2 also holds the flash attention and mLSTM kernels against their
 plain versions at the serving shapes and at a 1500-token prompt, in bf16
@@ -61,13 +84,16 @@ flash attention kernel (bf16 at hd 64, 128, 256) is held at hd 64 and
 off the 16-byte grid; at the serving shapes it is also timed alone on
 the device (the bare launch, without the wrapper's gate terms), and the
 bf16 error is printed against the f32 plain version and against the
-plain version in the kernel's own form.  Phase 1 prints each
+plain version in the kernel's own form.  It holds both kernels at the
+head widths between the compiled ones too (the wrappers zero-pad to the
+next: C1_FLASH, C1_MLSTM), and times fedavg, quantize and dequantize at
+phase 9's shapes.  Phase 1 prints each
 tensor-core kernel's ptxas registers and spills and its shared memory a
 CTA, and fails on a spill.
 
 Launch counts are zeroed just before each path (phases 4, 5, the
-checksum pass of 5, and the serving run of 6 and of 7) and read just
-after it, so the comparison launches of phase 2, of the ``encode_batch``
+checksum pass of 5, the serving run of 6 and of 7, the training steps of
+8 and the rounds of 9) and read just after it, so the comparison launches of phase 2, of the ``encode_batch``
 check and of the serving holds do not count.
 
 It exits non-zero with no result when CUDA is unavailable.
@@ -149,6 +175,61 @@ LM_PATHS = {"gemma3-12b": {"batch": 2, "prompt": 2048,
                            "per_prefill": 21, "f32_twin": True}}
 GEN_STEPS = 16
 TAIL_S = 1500                     # a prompt no 64-row tile divides
+# Head widths between the compiled ones, which the wrappers zero-pad to
+# the next (phase 2): the reference's own kernel-test shapes at hd / dh 32
+# (tests/test_kernels.py), the smoke configs' widths, and the mLSTM width
+# of fl_train_lm --scale 100m (dh 320, padded to 512).
+C1_FLASH = [  # (B, S, H, KV, hd, window, dtype)
+    (2, 384, 3, 3, 32, 128, "float32"),     # test_kernels.py:163
+    (1, 128, 1, 1, 32, 0, "float32"),       # :202, the tiling sweep
+    (1, 512, 1, 1, 32, 0, "float32"),
+    (1, 512, 1, 1, 64, 0, "float32"),
+    (2, 48, 4, 2, 16, 16, "float32"),       # smoke gemma3-12b's layer
+    (2, 300, 4, 2, 32, 64, "bfloat16"),
+    (2, 130, 4, 2, 16, 0, "bfloat16"),
+]
+C1_MLSTM = [  # (B, S, nh, dh, f_shift, dtype)
+    (2, 256, 1, 32, 2.0, "float32"),        # test_kernels.py:218
+    (1, 128, 2, 32, 1.0, "float32"),        # :236
+    (1, 256, 3, 32, 0.0, "float32"),        # :260
+    (2, 512, 4, 320, 2.0, "bfloat16"),      # fl_train_lm --scale 100m
+]
+# Phase 8: xlstm-350m training at full width, in two invocations of the
+# training entry point (the second resumes from the first's checkpoint), then
+# in process: TRAIN_TIMED steps timed after one warm-up, two profiled.
+TRAIN = {"arch": "xlstm-350m", "batch": 4, "seq": 128, "steps": (3, 6)}
+TRAIN_TIMED = 3
+# The train step on the card against the same step on the CPU (f32, smoke
+# size, B=4 x 64 tokens, AdamW and SGD at lr 1e-3): the loss and the grad
+# norm (relative), the SGD update (the gradient's own, relative L2) and
+# the share of elements whose AdamW update differs by more than 1e-6 (its
+# first step is lr * g / (|g| + eps), which flips where the two gradients
+# straddle 0); the AdamW update also within 2 lr everywhere.  Each hold is
+# (floor, ceiling): the larger of the floor and twice the model's own
+# conditioning, measured in the same run (the largest change that noise
+# of one float32 ulp, 2^-24 relative, on the weights makes to that
+# quantity on the CPU, over two draws), but never above the ceiling.  At
+# random init the xLSTM's sLSTM recurrences amplify rounding: such noise
+# moves its SGD update by 0.5-1.1% and its grad norm by 0.2-0.4% (CPU),
+# gemma3-12b's update by 2.3e-4.
+TRAIN_HOLD = {"xlstm-350m": {"loss": (1e-4, 1e-3), "grad_norm": (1e-3, 2e-2),
+                             "sgd": (1e-2, 3e-2), "adam_share": (0.05, 0.1)},
+              "gemma3-12b": {"loss": (1e-5, 1e-4), "grad_norm": (1e-4, 1e-3),
+                             "sgd": (1e-3, 3e-3),
+                             "adam_share": (0.01, 0.03)}}
+# Phase 9: fl_train_lm --scale 100m, 3 clients over WAN links at 5% loss;
+# the rounds are cut to LMFL_ROUNDS (the width is not), and the tiny scale
+# on the card and on the CPU.  NLL_TOL and PARAM_TOL are
+# tests/test_torch_fl_lm.py's: the NLL after two rounds of two local steps,
+# and the relative L2 distance between two runs' moves of the global model
+# after one round of one local step (a longer run is chaotic, see there).
+LMFL_ROUNDS = 3
+LMFL_TINY = ["--scale", "tiny", "--rounds", "2", "--clients", "2",
+             "--local-steps", "2"]
+LMFL_ONE_STEP = ["--scale", "tiny", "--rounds", "1", "--clients", "2",
+                 "--local-steps", "1"]
+NLL_TOL = 0.1
+PARAM_TOL = 0.3
 # Kernel bands against the plain versions: f32 as tests/test_kernels.py
 # holds the Pallas kernels, bf16 as its test_dtypes does;
 # |kernel - plain| <= band * (1 + |plain|) elementwise, except the mLSTM
@@ -383,7 +464,128 @@ def check_kernels():
     check_topk(dev, record)
     check_checksum(dev, record)
     check_lm_kernels(dev, record, rows)
+    check_head_widths(dev, rows)
+    check_lm_fl_kernels(dev, record)
     return rows
+
+
+def lm_fl_params() -> int:
+    """Parameters of fl_train_lm --scale 100m (one client's delta)."""
+    import torch
+    from repro_torch import fl_train_lm
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves
+    dev = torch.device("cuda")
+    params = M.init(fl_train_lm.model_config("100m"),
+                    torch.Generator(device=dev).manual_seed(0), dev)
+    n = sum(t.numel() for t in tree_leaves(params))
+    del params
+    torch.cuda.empty_cache()
+    return n
+
+
+def check_lm_fl_kernels(dev, record) -> None:
+    """fedavg, quantize and dequantize at fl_train_lm --scale 100m's
+    shapes: the server's mean of 3 clients' deltas (3, N) and one
+    client's int8 encode and decode (1, N); bitwise against the plain
+    versions, timed in full (``record``, key ``lm_fl``)."""
+    import torch
+    from repro_torch.kernels.fedavg import ops as fedavg_ops
+    from repro_torch.kernels.fedavg import ref as fedavg_ref
+    from repro_torch.kernels.quantize import ops as quant_ops
+    from repro_torch.kernels.quantize import ref as quant_ref
+
+    n, k = lm_fl_params(), 3
+    gen = torch.Generator(device=dev).manual_seed(16)
+    stack = torch.randn((k, n), generator=gen, device=dev) * 1e-3
+    w = torch.ones(k, device=dev)
+    out = fedavg_ops.fedavg(stack, w)
+    plain = fedavg_ref.fedavg(stack, w)
+    torch.cuda.synchronize()
+    if not bits_equal(out, plain):
+        raise AssertionError(f"fedavg {k}x{n}: kernel != plain version")
+    record("fedavg", "lm_fl", (k, n), 4 * k * n + 4 * k + 4 * n, 2 * k * n,
+           lambda: fedavg_ops.fedavg(stack, w),
+           lambda: fedavg_ref.fedavg(stack, w),
+           lambda: w @ stack, float((out - plain).abs().max()))
+    del out, plain
+    x = stack[:1].clone()
+    del stack
+    nb = -(-n // BLOCK)
+    q, sc = quant_ops.quantize(x, BLOCK)
+    q_ref, s_ref = quant_ref.quantize(x, BLOCK)
+    deq = quant_ops.dequantize(q, sc, n, BLOCK)
+    deq_ref = quant_ref.dequantize(q, sc, n, BLOCK)
+    torch.cuda.synchronize()
+    if not (bits_equal(q, q_ref) and bits_equal(sc, s_ref)
+            and bits_equal(deq, deq_ref)):
+        raise AssertionError(f"quantize/dequantize 1x{n}: kernel != plain")
+    del q_ref, s_ref, deq, deq_ref
+    record("quantize", "lm_fl", (1, n), 4 * n + nb * BLOCK + 4 * nb, 6 * n,
+           lambda: quant_ops.quantize(x, BLOCK),
+           lambda: quant_ref.quantize(x, BLOCK), None, 0.0)
+    record("dequantize", "lm_fl", (1, n), n + 4 * nb + 4 * n, n,
+           lambda: quant_ops.dequantize(q, sc, n, BLOCK),
+           lambda: quant_ref.dequantize(q, sc, n, BLOCK), None, 0.0)
+    del x, q, sc
+    torch.cuda.empty_cache()
+
+
+def check_head_widths(dev, rows) -> None:
+    """Flash attention and the mLSTM at the head widths of C1_FLASH and
+    C1_MLSTM (zero-padded to a compiled width by the wrappers), against
+    their plain versions at the true width, f32 at 2e-5 / 5e-4 and bf16
+    in the bf16 bands (the mLSTM's row-scaled)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.mlstm import ops as mlstm_ops
+    from repro_torch.kernels.mlstm import ref as mlstm_ref
+
+    gen = torch.Generator(device=dev).manual_seed(32)
+    for B, S, H, KV, hd, window, dname in C1_FLASH:
+        dtype = getattr(torch, dname)
+        q = torch.randn((B, S, H, hd), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((B, S, KV, hd), generator=gen,
+                            device=dev).to(dtype) for _ in range(2))
+        out = flash_ops.flash_attention(q, k, v, window=window)
+        plain = flash_ref.flash_attention(q, k, v, window=window)
+        torch.cuda.synchronize()
+        band = LM_BANDS[dname]["flash_attention"]
+        ok, err = _band_check(out, plain, band)
+        ms = time_ms(lambda: flash_ops.flash_attention(q, k, v,
+                                                       window=window))
+        say(f"  flash_attention hd{hd} {dname} {(B, S, H, KV, hd)} window "
+            f"{window}: max_abs_err {err} (band {band}), per call "
+            f"{ms:.6f} ms")
+        if not ok:
+            raise AssertionError(f"flash_attention hd {hd} {dname}: kernel "
+                                 f"outside the band, max |err| {err}")
+        rows["flash_attention"][f"hd{hd}_{S}_{dname}"] = {
+            "shape": [B, S, H, KV, hd, window], "ms": ms, "max_abs_err": err}
+    for B, S, nh, dh, f_shift, dname in C1_MLSTM:
+        dtype = getattr(torch, dname)
+        q, k, v = (torch.randn((B, S, nh, dh), generator=gen,
+                               device=dev).to(dtype) for _ in range(3))
+        ig = torch.randn((B, S, nh), generator=gen, device=dev).to(dtype)
+        fg = (torch.randn((B, S, nh), generator=gen, device=dev)
+              + f_shift).to(dtype)
+        out = mlstm_ops.mlstm(q, k, v, ig, fg)
+        plain = mlstm_ref.mlstm_parallel(q, k, v, ig, fg)
+        torch.cuda.synchronize()
+        band = LM_BANDS[dname]["mlstm"]
+        ok, err = _band_check(out, plain, band,
+                              row_scale=dtype == torch.bfloat16)
+        ms = time_ms(lambda: mlstm_ops.mlstm(q, k, v, ig, fg))
+        say(f"  mlstm dh{dh} {dname} {(B, S, nh, dh)}: max_abs_err {err} "
+            f"(band {band}{', row-scaled' if dname == 'bfloat16' else ''}), "
+            f"per call {ms:.6f} ms")
+        if not ok:
+            raise AssertionError(f"mlstm dh {dh} {dname}: kernel outside "
+                                 f"the band, max |err| {err}")
+        rows["mlstm"][f"dh{dh}_{S}_{dname}"] = {
+            "shape": [B, S, nh, dh], "ms": ms, "max_abs_err": err}
+    torch.cuda.empty_cache()
 
 
 def _topk_inputs(dev, key, rows, n, k, seed):
@@ -1246,23 +1448,364 @@ def run_lm_path(arch: str) -> tuple[dict, dict]:
                     "n_params": n_params}
 
 
-def run_serve_cli() -> None:
-    """``python -m repro_torch.launch.serve`` at full width on the card."""
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-           "xlstm-350m", "--device", "cuda", "--prompt-len", "8", "--gen",
-           "4"]
+def _run_module(tag: str, args: list[str], timeout: int = 300) -> list[str]:
+    """``python -m <args>`` from the checkout on the card; its stdout lines
+    (echoed with ``tag``); fails unless it exits 0."""
+    cmd = [sys.executable, "-m", *args]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (os.path.join(HERE, "src"), os.environ.get("PYTHONPATH"))
         if p))
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
-                          text=True, timeout=300)
+                          text=True, timeout=timeout)
     for line in proc.stdout.splitlines():
-        say(f"  serve: {line}")
+        say(f"  {tag}: {line}")
     if proc.returncode != 0:
-        raise AssertionError(f"serve exited {proc.returncode}:\n"
+        raise AssertionError(f"{tag} exited {proc.returncode}:\n"
                              f"{proc.stderr[-4000:]}")
-    say(f"  serve exited 0 in {time.perf_counter() - t0:.3f} s")
+    say(f"  {tag} exited 0 in {time.perf_counter() - t0:.3f} s")
+    return proc.stdout.splitlines()
+
+
+def run_serve_cli() -> None:
+    """``python -m repro_torch.launch.serve`` at full width on the card,
+    and at the smoke widths of both served models (head widths 16 and 32,
+    which the kernels run zero-padded to 64)."""
+    _run_module("serve", ["repro_torch.launch.serve", "--arch",
+                          "xlstm-350m", "--device", "cuda", "--prompt-len",
+                          "8", "--gen", "4"])
+    for arch in LM_PATHS:
+        _run_module(f"serve --smoke {arch}",
+                    ["repro_torch.launch.serve", "--arch", arch, "--smoke",
+                     "--device", "cuda"])
+
+
+# --------------------------------------------------------------------------
+# Phase 8: LM training
+# --------------------------------------------------------------------------
+def run_train_cli() -> list[float]:
+    """The training entry point at full width, twice over one checkpoint
+    directory: the second invocation must resume from the first's last
+    step.  Returns the losses both printed."""
+    import math
+    import shutil
+    import tempfile
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    base = ["repro_torch.launch.train", "--arch", TRAIN["arch"], "--batch",
+            str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]), "--ckpt-dir",
+            ckpt, "--log-every", "1", "--device", "cuda"]
+    first, last = TRAIN["steps"]
+    try:
+        out = _run_module("train", base + ["--steps", str(first)], 900)
+        out2 = _run_module("train (resume)", base + ["--steps", str(last)],
+                           900)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if f"resumed from step {first}" not in out2 or out2[-1] != "done":
+        raise AssertionError("the second training run did not resume from "
+                             f"step {first}")
+    losses = [float(line.split()[3]) for line in out + out2
+              if line.startswith("step ")]
+    if len(losses) != last or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"training losses: {losses}")
+    return losses
+
+
+def run_train_path() -> dict:
+    """xlstm-350m's train step at full width in process: one warm-up
+    step, TRAIN_TIMED timed steps, two under the profiler; s/step,
+    tokens/s, peak memory, idle share, and the model-FLOP rate (6 N
+    tokens a step, an estimate) against the bf16 peak.  No kernel runs
+    on the training path (its loss is the reference's XLA-twin code), and
+    the counts, zeroed before and read after, must say so."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves
+
+    tc = TrainConfig(learning_rate=1e-3, warmup_steps=10, total_steps=100,
+                     remat_policy="none")
+    cfg, opt = train.build(TRAIN["arch"], False, tc)
+    dev = torch.device("cuda")
+    step = M.make_train_step(cfg, opt, tc)
+    state = M.init_train_state(cfg, opt,
+                               torch.Generator(device=dev).manual_seed(0),
+                               dev)
+    n = sum(t.numel() for t in tree_leaves(state.params))
+    batches = train.make_batch_fn(cfg, TRAIN["batch"], TRAIN["seq"])
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    state, m = step(state, batches(0))
+    torch.cuda.synchronize()
+    times = []
+    for s in range(1, 1 + TRAIN_TIMED):
+        b = batches(s)
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    bs = [batches(s) for s in range(1 + TRAIN_TIMED, 3 + TRAIN_TIMED)]
+    holder = {"state": state}
+
+    def two_steps():
+        for b in bs:
+            holder["state"], holder["m"] = step(holder["state"], b)
+    prof = _device_profile("2 train steps", two_steps, "mlstm")
+    counts = dict(kernels.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    s_step = statistics.median(times)
+    flops = 6 * n * tokens
+    loss = float(holder["m"]["loss"])
+    say(f"  {TRAIN['arch']}: {n} parameters ({cfg.dtype}), AdamW f32 "
+        f"moments, batch {TRAIN['batch']} x {TRAIN['seq']} tokens: "
+        f"{s_step:.6f} s/step (median of {TRAIN_TIMED}: "
+        f"{', '.join(f'{t:.6f}' for t in times)}), {tokens / s_step:.1f} "
+        f"tokens/s, peak memory {peak_gb:.3f} GB, idle share "
+        f"{prof['idle_share']:.4f} over 2 profiled steps, model FLOPs "
+        f"6 N tokens = {flops:.4e} a step, {flops / s_step / 1e12:.3f} "
+        f"TFLOP/s = {flops / s_step / PEAK_BF16_FLOPS:.5f} of 989 TFLOP/s "
+        f"(an estimate), loss {loss:.4f}")
+    say(f"  launch counts: {json.dumps(counts)}")
+    if any(counts.values()):
+        raise AssertionError(f"a kernel launched on the training path: "
+                             f"{counts}")
+    if not (loss == loss and abs(loss) < float("inf")):
+        raise AssertionError(f"training loss {loss}")
+    del state, holder
+    torch.cuda.empty_cache()
+    return {"s_per_step": s_step, "steps_s": times,
+            "tokens_per_s": tokens / s_step, "peak_gb": peak_gb,
+            "idle_share": prof["idle_share"], "n_params": n,
+            "mfu_estimate": flops / s_step / PEAK_BF16_FLOPS,
+            "profile": prof}
+
+
+def hold_train_step_cpu() -> dict:
+    """One train step on the card against the same step on the CPU, f32 at
+    smoke size, for both trained families (TRAIN_HOLD: the floor,
+    widened to twice the model's own one-ulp conditioning where that is
+    larger, up to the ceiling)."""
+    import numpy as np
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves, tree_map
+
+    lr, cpu = 1e-3, torch.device("cpu")
+
+    def run(step, opt, params, dev):
+        """(loss, grad norm, the update as one float64 vector)."""
+        p = tree_map(lambda t: t.to(dev), params)
+        st, m = step(optim.TrainState(
+            torch.zeros((), dtype=torch.int32, device=dev), p, opt.init(p)),
+            batch)
+        return (float(m["loss"]), float(m["grad_norm"]), np.concatenate(
+            [(t.double().cpu() - o.double()).numpy().ravel()
+             for t, o in zip(tree_leaves(st.params), tree_leaves(params))]))
+
+    def distance(a, b, name):
+        """loss, grad norm and update distances of two runs."""
+        upd = (float(np.linalg.norm(a[2] - b[2]) / np.linalg.norm(b[2]))
+               if name == "sgd" else float((np.abs(a[2] - b[2]) > 1e-6).mean()))
+        return {"loss": abs(a[0] - b[0]) / abs(b[0]),
+                "grad_norm": abs(a[1] - b[1]) / abs(b[1]), name if name ==
+                "sgd" else "adam_share": upd}
+
+    out = {}
+    for arch, floor in TRAIN_HOLD.items():
+        cfg = smoke_variant(get_config(arch))
+        params = M.init(cfg, torch.Generator().manual_seed(0), cpu)
+        batch = TokenPipeline(cfg.vocab_size, 64, 4, seed=1).batch(0)
+        res = {}
+        for name in ("adamw", "sgd"):
+            opt = optim.make_optimizer(name, optim.constant(lr))
+            step = M.make_train_step(cfg, opt)
+            on_cpu = run(step, opt, params, cpu)
+            on_card = run(step, opt, params, torch.device("cuda"))
+            got = distance(on_card, on_cpu, name)
+            sens = {k: 0.0 for k in got}
+            for seed in (1, 2):
+                gen = torch.Generator().manual_seed(seed)
+                noisy = tree_map(lambda t: t * (1 + torch.randn(
+                    t.shape, generator=gen) * 2.0 ** -24), params)
+                d = distance(run(step, opt, noisy, cpu), on_cpu, name)
+                sens = {k: max(sens[k], d[k]) for k in got}
+            hold = {k: min(floor[k][1], max(floor[k][0], 2 * sens[k]))
+                    for k in got}
+            say(f"  {arch} smoke f32 {name} step, card vs CPU: loss "
+                f"{on_card[0]:.6f} / {on_cpu[0]:.6f}; " + ", ".join(
+                    f"{k} {got[k]:.3e} (hold {hold[k]:.3e}; one-ulp "
+                    f"noise on the CPU {sens[k]:.3e})" for k in got))
+            bad = [k for k in got if got[k] > hold[k]]
+            if name == "adamw":
+                worst = float(np.abs(on_card[2] - on_cpu[2]).max())
+                say(f"    AdamW update max |diff| {worst:.3e} (hold 2 lr)")
+                if worst > 2 * lr * (1 + 1e-3):
+                    bad.append("adamw max |diff|")
+            if bad:
+                raise AssertionError(f"{arch} {name} step: card and CPU "
+                                     f"disagree on {bad}")
+            res[name] = {"card_vs_cpu": got, "one_ulp": sens, "hold": hold}
+        out[arch] = res
+    return out
+
+
+# --------------------------------------------------------------------------
+# Phase 9: federated LM training over MUDP
+# --------------------------------------------------------------------------
+def run_lm_fl_path() -> tuple[dict, dict, dict]:
+    """fl_train_lm --scale 100m over WAN links on the card, LMFL_ROUNDS
+    rounds with checkpoints and the journal; launch counts zeroed just
+    before and read just after; the fedavg / quantize / dequantize calls
+    by shape.  Then the tiny scale on the card and on the CPU: identical
+    round records, NLL within NLL_TOL; after one round of one local step,
+    the global model's moves within PARAM_TOL, and a CPU run with no-op
+    local steps outside it."""
+    import collections
+    import math
+    import shutil
+    import tempfile
+
+    from repro_torch import fl_train_lm, kernels
+    from repro_torch.kernels.fedavg import ops as fedavg_ops
+    from repro_torch.kernels.quantize import ops as quant_ops
+
+    by_shape = {n: collections.Counter()
+                for n in ("fedavg", "quantize", "dequantize")}
+    orig = (quant_ops.quantize, quant_ops.dequantize, fedavg_ops.fedavg)
+
+    def shaped(name, fn, tensor_arg, n_arg=None):
+        """``fn`` counting its calls by (rows x width) of its input (for
+        dequantize, rows x the n values it expands)."""
+        def call(*a, **kw):
+            rows, width = a[tensor_arg].shape
+            if n_arg is not None:
+                width = a[n_arg]
+            by_shape[name][f"{rows}x{width}"] += 1
+            return fn(*a, **kw)
+        return call
+    quant_ops.quantize = shaped("quantize", orig[0], 0)
+    quant_ops.dequantize = shaped("dequantize", orig[1], 0, n_arg=2)
+    fedavg_ops.fedavg = shaped("fedavg", orig[2], 0)
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_fl_")
+    try:
+        args = fl_train_lm.parser().parse_args(
+            ["--scale", "100m", "--clients", "3", "--rounds",
+             str(LMFL_ROUNDS), "--device", "cuda", "--ckpt-dir", ckpt])
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        records = fl_train_lm.run(args)
+        wall = time.perf_counter() - t0
+        counts = dict(kernels.launch_counts)
+    finally:
+        quant_ops.quantize, quant_ops.dequantize, fedavg_ops.fedavg = orig
+        shutil.rmtree(ckpt, ignore_errors=True)
+    for rec in records:
+        say(f"  round {rec['round']}: wall {rec['wall_s']:.6f} s, local "
+            f"steps {rec['train_s']:.6f} s, int8 encode/decode "
+            f"{rec['wire_s']:.6f} s, checkpoint save {rec['ckpt_s']:.6f} s, "
+            f"arrived {len(rec['arrived'])}/3, eval NLL {rec['nll']:.6f}")
+    by_shape = {n: dict(c.most_common()) for n, c in by_shape.items()}
+    say(f"  launch counts: {json.dumps(counts)}; calls by shape: "
+        f"{json.dumps(by_shape)}; {wall:.3f} s in all")
+    for name in ("fedavg", "quantize", "dequantize"):
+        if counts.get(name, 0) <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"LM-FL path")
+    if any(len(r["arrived"]) < 2 for r in records):
+        raise AssertionError("a round aggregated fewer than 2 of 3 clients")
+    last = records[-1]
+    if not (math.isfinite(last["nll"]) and last["nll"] < last["first_nll"]):
+        raise AssertionError(f"eval NLL {last['nll']} after the last round, "
+                             f"{last['first_nll']} before the first")
+    if last["resume_round"] != LMFL_ROUNDS:
+        raise AssertionError(f"resume round {last['resume_round']}")
+
+    return counts, by_shape, {"records": records, "wall_s": wall,
+                              **hold_lm_fl_tiny("cuda")}
+
+
+def hold_lm_fl_tiny(dev: str = "cuda") -> dict:
+    """``fl_train_lm --scale tiny`` on ``dev`` against the CPU from one
+    set of weights: identical round records and NLL within NLL_TOL after
+    two rounds of two local steps; after one round of one local step, the
+    global model's moves within PARAM_TOL of each other, and a CPU run
+    whose local steps are no-ops outside it."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch import fl_train_lm
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves
+
+    # Both runs start from one set of weights, drawn on the CPU (a
+    # generator on the card draws other numbers).
+    start = M.init(fl_train_lm.model_config("tiny"),
+                   torch.Generator().manual_seed(0), "cpu")
+    tiny = {}
+    for where in (dev, "cpu"):
+        d = tempfile.mkdtemp(prefix="chip_smoke_fl_tiny_")
+        try:
+            tiny[where] = fl_train_lm.run(fl_train_lm.parser().parse_args(
+                LMFL_TINY + ["--device", where, "--ckpt-dir", d]), start)
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+    keys = ("t_ns", "arrived", "retx", "wire_bytes")
+    same = ([{k: r[k] for k in keys} for r in tiny[dev]]
+            == [{k: r[k] for k in keys} for r in tiny["cpu"]])
+    dn = max(abs(a["nll"] - b["nll"]) for a, b in zip(tiny[dev],
+                                                       tiny["cpu"]))
+    d0 = abs(tiny[dev][-1]["first_nll"] - tiny["cpu"][-1]["first_nll"])
+    say(f"  tiny on the card and the CPU from the same weights: round "
+        f"records identical {same}; eval NLL before the first round "
+        f"|diff| {d0:.3e}, after each round max |diff| {dn:.6f} (hold "
+        f"{NLL_TOL})")
+    if not same or dn > NLL_TOL or d0 > 1e-4:
+        raise AssertionError("tiny LM-FL: card and CPU disagree")
+
+    def flat(tree):
+        return np.concatenate([t.double().cpu().numpy().ravel()
+                               for t in tree_leaves(tree)])
+
+    def one_round_move(where, make_step=M.make_train_step):
+        """The global model's move over one round of one local step, from
+        the last checkpoint, as one float64 vector."""
+        d = tempfile.mkdtemp(prefix="chip_smoke_fl_move_")
+        saved, M.make_train_step = M.make_train_step, make_step
+        try:
+            fl_train_lm.run(fl_train_lm.parser().parse_args(
+                LMFL_ONE_STEP + ["--device", where, "--ckpt-dir", d]), start)
+            tree, _ = CheckpointManager(d).restore(start)
+        finally:
+            M.make_train_step = saved
+            shutil.rmtree(d, ignore_errors=True)
+        return flat(tree) - flat(start)
+
+    def no_op_step(cfg, opt):
+        return lambda state, batch: (state, {"loss": torch.zeros(())})
+    want = one_round_move("cpu")
+    moved = {"card": one_round_move(dev),
+             "no-op": one_round_move("cpu", no_op_step)}
+    dist = {k: float(np.linalg.norm(v - want) / np.linalg.norm(want))
+            for k, v in moved.items()}
+    say(f"  tiny, one round of one local step from the same weights: the "
+        f"global model's move on the card lies {dist['card']:.6f} (relative "
+        f"L2) from the CPU's (hold {PARAM_TOL}); a run with no-op local "
+        f"steps lies {dist['no-op']:.6f} from it (must exceed the hold)")
+    if not dist["card"] <= PARAM_TOL < dist["no-op"]:
+        raise AssertionError("tiny LM-FL: the card's model moved unlike "
+                             "the CPU's, or the hold passes a no-op run")
+    return {"tiny_nll_diff": dn, "tiny_first_nll_diff": d0,
+            "tiny_move_rel_l2": dist}
 
 
 def _ptxas_lines(log: str) -> list[tuple[str, str]]:
@@ -1378,6 +1921,22 @@ def main() -> int:
             run_serve_cli()
         say(f"  phase {phase}: {time.perf_counter() - t0:.3f} s")
 
+    say(f"[8] {TRAIN['arch']} training at full width: the training entry point "
+        f"twice (resume), then {TRAIN_TIMED} timed and 2 profiled steps; "
+        f"the step on the card against the CPU at smoke size")
+    t0 = time.perf_counter()
+    losses = run_train_cli()
+    say(f"  entry-point losses over {len(losses)} steps: {losses}")
+    train_rec = run_train_path()
+    train_rec["holds"] = hold_train_step_cpu()
+    say(f"  phase 8: {time.perf_counter() - t0:.3f} s")
+
+    say(f"[9] fl_train_lm --scale 100m: 3 clients, WAN links, 5% uplink "
+        f"loss, int8 deltas with error feedback, {LMFL_ROUNDS} rounds")
+    t0 = time.perf_counter()
+    counts_lmfl, by_shape_lmfl, lmfl = run_lm_fl_path()
+    say(f"  phase 9: {time.perf_counter() - t0:.3f} s")
+
     # Each kernel's launches on its own path: slice 1's kernels on phase
     # 4's path (their count on the fleet path beside it), the top-k
     # kernels on the fleet path, checksum on the pass over its bodies,
@@ -1409,6 +1968,11 @@ def main() -> int:
                        ("mlstm", "xlstm-350m")):
         out[list(MAIN_SHAPE).index(name)]["serving"] = dict(
             lm[arch][1], arch=arch)
+    for name in ("fedavg", "quantize", "dequantize"):
+        out[list(MAIN_SHAPE).index(name)].update(
+            launches_lm_fl_path=counts_lmfl[name],
+            launches_by_shape_lm_fl_path=by_shape_lmfl[name])
+    say(json.dumps({"lm_training": train_rec, "lm_fl": lmfl}))
     say(f"  total {time.perf_counter() - t_start:.3f} s")
     say(json.dumps({"kernels": out}))
     say(card_line())

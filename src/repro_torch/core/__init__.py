@@ -23,7 +23,8 @@ from repro_torch.core.client_compute import (ClientModel, ConsensusModel,
                                              make_model, make_train_backend,
                                              register_model,
                                              register_train_backend)
-from repro_torch.core.channel import (BernoulliLoss, DropList, GilbertElliott,
+from repro_torch.core.channel import (DCN_LINK, PAPER_LINK, WAN_LINK,
+                                      BernoulliLoss, DropList, GilbertElliott,
                                       Link, LossModel, NoLoss, keyed_uniform,
                                       keyed_uniforms, packet_key_arrays)
 from repro_torch.core.compression import (Codec, HexCodec, Int8Codec, RawCodec,
@@ -77,6 +78,7 @@ __all__ = [
     "ClientModel", "ConsensusModel", "TrainBackend", "available_models",
     "available_train_backends", "make_model", "make_train_backend",
     "register_model", "register_train_backend",
+    "DCN_LINK", "PAPER_LINK", "WAN_LINK",
     "BernoulliLoss", "DropList", "GilbertElliott", "Link", "LossModel",
     "NoLoss", "keyed_uniform", "keyed_uniforms", "packet_key_arrays",
     "Codec", "HexCodec", "Int8Codec", "RawCodec", "TopKCodec", "make_codec",

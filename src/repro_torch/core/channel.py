@@ -298,3 +298,11 @@ class Link:
     def reset(self) -> None:
         self._busy_until_ns = 0
 
+
+
+# Link presets, as ``Link(**preset)`` keyword sets (the reference's).
+PAPER_LINK = dict(data_rate_bps=5_000_000.0, delay_ns=2_000_000_000)
+# Cross-pod DCN-class link: 25 Gbps effective per stream, 1 ms RTT/2.
+DCN_LINK = dict(data_rate_bps=25_000_000_000.0, delay_ns=500_000)
+# Cross-region WAN: 2 Gbps, 30 ms one-way.
+WAN_LINK = dict(data_rate_bps=2_000_000_000.0, delay_ns=30_000_000)

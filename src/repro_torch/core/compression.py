@@ -24,6 +24,7 @@ from __future__ import annotations
 import binascii
 import dataclasses
 import struct
+from typing import Callable
 
 import numpy as np
 
@@ -153,15 +154,23 @@ def dequantize_int8_batch(q: np.ndarray, scales: np.ndarray, n: int,
 
 @dataclasses.dataclass
 class Int8Codec(Codec):
-    """Wire layout: n(u64) block(u32) nb(u32) | scales f32[nb] | int8[nb*block]."""
+    """Wire layout: n(u64) block(u32) nb(u32) | scales f32[nb] | int8[nb*block].
+
+    ``quantize`` and ``dequantize`` compute the codes and the values back:
+    the numpy forms by default; the wire plane's int8 stage passes its
+    backend's (the quantize kernels), which give the same bytes."""
 
     block: int = 1024
+    quantize: Callable = dataclasses.field(default=quantize_int8,
+                                           repr=False, compare=False)
+    dequantize: Callable = dataclasses.field(default=dequantize_int8,
+                                             repr=False, compare=False)
     name = "int8"
     lossless = False
 
     def encode(self, vec: np.ndarray) -> bytes:
         vec = np.asarray(vec, dtype=np.float32)
-        q, scales = quantize_int8(vec, self.block)
+        q, scales = self.quantize(vec, self.block)
         head = _U64.pack(vec.size) + _U32.pack(self.block) + _U32.pack(scales.size)
         return head + scales.astype("<f4").tobytes() + q.tobytes()
 
@@ -173,7 +182,7 @@ class Int8Codec(Codec):
         scales = np.frombuffer(data, dtype="<f4", count=nb, offset=off)
         off += 4 * nb
         q = np.frombuffer(data, dtype=np.int8, count=nb * block, offset=off)
-        return dequantize_int8(q, scales.astype(np.float32), n, block)
+        return self.dequantize(q, scales.astype(np.float32), n, block)
 
 
 # --------------------------------------------------------------------------

@@ -16,7 +16,7 @@ the architecture — only weight bytes travel, exactly as in the paper).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Iterator, Optional
+from typing import Any, Optional
 
 import numpy as np
 
@@ -24,6 +24,7 @@ from repro_torch.core.compression import Codec, RawCodec
 from repro_torch.core.packets import Packet, make_data_packet
 from repro_torch.core.wire import (Pipeline, PipelineState, WireError,
                              decode_payload, stage_for_codec)
+from repro_torch.tree import rebuild as _rebuild, tree_leaves, tree_map  # noqa: F401
 
 DEFAULT_MTU = 1500
 _IP_UDP_OVERHEAD = 28  # bytes of IP+UDP headers a real datagram would carry
@@ -32,45 +33,6 @@ _IP_UDP_OVERHEAD = 28  # bytes of IP+UDP headers a real datagram would carry
 # --------------------------------------------------------------------------
 # pytree <-> flat vector
 # --------------------------------------------------------------------------
-def tree_leaves(tree: Any) -> list:
-    """The leaves of a parameter tree in JAX's pytree order: dict keys
-    **sorted** (JAX flattens dicts by sorted key; ``torch.utils._pytree``
-    keeps insertion order, which would move every wire byte), lists and
-    tuples in order, ``None`` as an empty subtree, anything else a leaf."""
-    if isinstance(tree, dict):
-        return [leaf for key in sorted(tree) for leaf in tree_leaves(tree[key])]
-    if isinstance(tree, (list, tuple)):
-        return [leaf for sub in tree for leaf in tree_leaves(sub)]
-    if tree is None:
-        return []
-    return [tree]
-
-
-def _rebuild(template: Any, leaves: Iterator) -> Any:
-    """A tree shaped like ``template`` whose leaves come from ``leaves``,
-    consumed in :func:`tree_leaves` order."""
-    if isinstance(template, dict):
-        out = {key: _rebuild(template[key], leaves)
-               for key in sorted(template)}
-        return {key: out[key] for key in template}
-    if isinstance(template, (list, tuple)):
-        items = [_rebuild(sub, leaves) for sub in template]
-        if isinstance(template, list):
-            return items
-        if hasattr(template, "_fields"):          # namedtuple
-            return type(template)(*items)
-        return type(template)(items)
-    if template is None:
-        return None
-    return next(leaves)
-
-
-def tree_map(fn: Callable, *trees: Any) -> Any:
-    """``fn`` applied leafwise across trees shaped like ``trees[0]``."""
-    groups = zip(*(tree_leaves(t) for t in trees))
-    return _rebuild(trees[0], iter([fn(*group) for group in groups]))
-
-
 def flatten_to_vector(tree: Any) -> np.ndarray:
     """Deterministic (pytree order) concat of all leaves as float32."""
     leaves = tree_leaves(tree)

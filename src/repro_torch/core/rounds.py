@@ -68,6 +68,12 @@ class FederatedSystem:
         with _device.use_device(self.device):
             return self.scheduler.run_rounds(n)
 
+    def add_client(self, client: FLClient) -> None:
+        """Elastic join between rounds: the sync barrier picks the client
+        up in the next round's roster (``ClientPool.active``)."""
+        self.core.pool.add(client)
+        self.core.install_client_rx(client)
+
     # -- state owned by the core, surfaced here for compatibility ------------
     @property
     def global_params(self) -> Any:

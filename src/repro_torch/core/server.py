@@ -228,6 +228,11 @@ class ClientPool:
     def benched(self, round_idx: int) -> list[str]:
         return [a for a, r in self.benched_until.items() if r > round_idx]
 
+    def add(self, client: FLClient) -> None:
+        """Elastic join: the client is active from the next roster."""
+        self.clients[client.addr] = client
+        self.failures[client.addr] = 0
+
     def record_failure(self, addr: str, round_idx: int) -> None:
         self.failures[addr] = self.failures.get(addr, 0) + 1
         if self.failures[addr] >= self.unhealthy_after:

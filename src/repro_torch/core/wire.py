@@ -390,6 +390,21 @@ def _dequantize_rows(q: np.ndarray, scales: np.ndarray, n: int,
         return out.cpu().numpy()
 
 
+def _quantize_vec(vec: np.ndarray, block: int
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """:func:`_quantize_rows` of one vector, in ``quantize_int8``'s form."""
+    q, scales = _quantize_rows(vec.reshape(1, -1), block)
+    return q.reshape(-1), scales.reshape(-1)
+
+
+def _dequantize_vec(q: np.ndarray, scales: np.ndarray, n: int,
+                    block: int) -> np.ndarray:
+    """:func:`_dequantize_rows` of one vector, in ``dequantize_int8``'s
+    form."""
+    return _dequantize_rows(q.reshape(1, -1), scales.reshape(1, -1),
+                            n, block).reshape(-1)
+
+
 def _gather_rows(mat: np.ndarray, idx: np.ndarray) -> np.ndarray:
     """``mat[r, idx[r, k]]`` of an ``(N, P)`` float32 matrix at ``(N, K)``
     u32 indices below ``P``, on the active backend."""
@@ -676,7 +691,10 @@ class Int8Stage(Stage):
             raise WireError(f"int8 block must be >= 1, got {block}")
         self.block = int(block)
         self.est_ratio = 0.25 + 4.0 / (4.0 * self.block)  # q + scale share
-        self.legacy_codec = Int8Codec(block=self.block)
+        # the headerless format, quantized on the active backend
+        self.legacy_codec = Int8Codec(block=self.block,
+                                      quantize=_quantize_vec,
+                                      dequantize=_dequantize_vec)
 
     def spec(self) -> str:
         return f"int8({self.block})"

@@ -2,8 +2,10 @@
 ``q (B,S,H,hd), k/v (B,T,KV,hd) -> (B,S,H,hd)``, f32 or bf16, GQA when
 ``KV`` divides ``H``.
 
-On CUDA tensors it launches ``csrc/flash_attention.cu`` (``hd`` in 64, 128,
-256, 512) and counts the launch in
+On CUDA tensors it launches ``csrc/flash_attention.cu``, compiled at ``hd``
+64, 128, 256 and 512; any other width up to 512 runs at the next compiled
+one, zero-padded (:mod:`repro_torch.kernels.head_width`).  It counts the
+launch in
 :data:`repro_torch.kernels.launch_counts`; on CPU tensors it runs the plain
 version in :mod:`repro_torch.kernels.flash_attention.ref`.  It never falls
 back from one to the other.  The C launcher picks the kernel by (dtype,
@@ -21,6 +23,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
+from repro_torch.kernels.head_width import run_padded
 
 #: head widths the kernel is compiled for
 HEAD_DIMS = (64, 128, 256, 512)
@@ -77,12 +80,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"the flash_attention kernel takes float32 or "
+                         f"bfloat16; got {q.dtype}")
+    return run_padded(_launch, q, k, v, causal, window, widths=HEAD_DIMS,
+                      what="flash_attention")
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: int, *, scale: float) -> torch.Tensor:
+    """One launch at a compiled head width, with the caller's scale."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
-    if q.dtype not in _DTYPES or hd not in HEAD_DIMS:
-        raise ValueError(f"the flash_attention kernel takes float32 or "
-                         f"bfloat16 with hd in {HEAD_DIMS}; got {q.dtype}, "
-                         f"hd={hd}")
     if T == 0 or B * H > 65535:
         raise ValueError(f"flash_attention: T={T}, B*H={B * H} out of the "
                          f"kernel's range")
@@ -93,7 +102,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     rc = _lib().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, T,
-        H, KV, hd, int(bool(causal)), int(window), hd ** -0.5,
+        H, KV, hd, int(bool(causal)), int(window), scale,
         _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attention", "flash_attention_fwd")
     kernels.launch_counts["flash_attention"] += 1

@@ -6,8 +6,10 @@ On CUDA tensors it launches one of the two kernels of ``csrc/mlstm.cu``,
 chosen by (dtype, dh) in :data:`ROUTES`, and counts the launch in
 :data:`repro_torch.kernels.launch_counts`; on CPU tensors it runs the
 plain version, :func:`repro_torch.kernels.mlstm.ref.mlstm_parallel`.  It
-never falls back from one to another, and a (dtype, dh) outside the table
-raises.  q, k and v are copied first if their base is off the 16-byte
+never falls back from one to another.  A head width between the compiled
+ones runs at the next compiled width, zero-padded
+(:mod:`repro_torch.kernels.head_width`); a dtype outside the table, or a
+width above 512, raises.  q, k and v are copied first if their base is off the 16-byte
 grid that TMA and the vector loads need.
 
 * bfloat16 at dh 512 (xlstm-350m's width): ``mlstm_wgmma_kernel``, bf16
@@ -29,6 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch import kernels
 from repro_torch.kernels import _build
+from repro_torch.kernels.head_width import run_padded
 from repro_torch.kernels.mlstm import ref
 
 #: head widths the kernels are compiled for
@@ -118,11 +121,19 @@ def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.mlstm_parallel(q, k, v, i_gate, f_gate)
     if q.device.type != "cuda":
         raise ValueError(f"mlstm runs on cuda or cpu, not {q.device}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"the mlstm kernels take float32 or bfloat16; got "
+                         f"{q.dtype}")
+    return run_padded(_launch, q, k, v, i_gate, f_gate, widths=HEAD_DIMS,
+                      what="mlstm")
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            i_gate: torch.Tensor, f_gate: torch.Tensor, *,
+            scale: float) -> torch.Tensor:
+    """One launch at a compiled head width, with the caller's scale."""
     B, S, nh, dh = q.shape
-    route = ROUTES.get((q.dtype, dh))
-    if route is None:
-        raise ValueError(f"the mlstm kernels take float32 or bfloat16 with "
-                         f"dh in {HEAD_DIMS}; got {q.dtype}, dh={dh}")
+    route = ROUTES[(q.dtype, dh)]
     if B * nh > 65535:
         raise ValueError(f"mlstm: B*nh={B * nh} out of the kernel's range")
     q, k, v = (_tma_ready(t) for t in (q, k, v))
@@ -135,14 +146,14 @@ def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = _lib().mlstm_wgmma_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             m.data_ptr(), floor.data_ptr(), out.data_ptr(), B, S, nh, dh,
-            dh ** -0.5, stream)
+            scale, stream)
         _build.check(rc, "mlstm", "mlstm_wgmma_fwd")
     else:
         cum = torch.cumsum(F.logsigmoid(f_gate.float()), dim=1).contiguous()
         ig = i_gate.float().contiguous()
         rc = _lib().mlstm_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), cum.data_ptr(),
-            ig.data_ptr(), out.data_ptr(), B, S, nh, dh, dh ** -0.5,
+            ig.data_ptr(), out.data_ptr(), B, S, nh, dh, scale,
             _DTYPES[q.dtype], stream)
         _build.check(rc, "mlstm", "mlstm_fwd")
     kernels.launch_counts["mlstm"] += 1

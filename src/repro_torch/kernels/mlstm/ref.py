@@ -1,7 +1,8 @@
 """Plain PyTorch version of the chunkwise mLSTM kernel: the stabilized
 parallel (quadratic) form, the reference's ``mlstm_parallel``
 (``repro.models.xlstm``), which the reference's oracle
-``repro.kernels.mlstm.ref.mlstm_ref`` delegates to.
+``repro.kernels.mlstm.ref.mlstm_ref`` delegates to.  Its body is the
+port's model form, ``repro_torch.models.xlstm.mlstm_parallel``.
 
 One difference, the Pallas kernel's: the gated scores are cast to ``v``'s
 type before the product with ``v`` (the reference's parallel form keeps
@@ -15,35 +16,20 @@ kernel's form: each row's stabiliser given up front as the gate terms of
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
+
+# The model module imports this package's ops (and so this module) too:
+# import the module, not its names, so either may load first.
+from repro_torch.models import xlstm as _model
 
 
 def mlstm_parallel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   i_gate: torch.Tensor, f_gate: torch.Tensor
-                   ) -> torch.Tensor:
-    """q/k/v: (B,S,nh,dh); i/f raw gate logits: (B,S,nh) -> h (B,S,nh,dh).
-
-    D[t,s] = cumlogsig(f)[t] - cumlogsig(f)[s] + i[s]  (s <= t), stabilized
-    per row; h = (exp(D - m) * (q k^T / sqrt(dh))) v / max(|row sum|, e^-m).
-    """
-    B, S, nh, dh = q.shape
-    logf = F.logsigmoid(f_gate.float())                        # (B,S,nh)
-    cum = torch.cumsum(logf, dim=1)
-    ii = i_gate.float()
-    D = cum[:, :, None, :] - cum[:, None, :, :] + ii[:, None, :, :]
-    t_idx = torch.arange(S, device=q.device)
-    causal = t_idx[:, None] >= t_idx[None, :]
-    D = torch.where(causal[None, :, :, None], D, -torch.inf)   # (B,t,s,nh)
-    m = torch.amax(D, dim=2, keepdim=True)                      # (B,t,1,nh)
-    d_exp = torch.exp(D - m)
-    scores = torch.einsum("bthd,bshd->btsh", q.float(), k.float())
-    scores = scores * (dh ** -0.5) * d_exp
-    norm = torch.maximum(torch.abs(scores.sum(dim=2)),
-                         torch.exp(-m[:, :, 0, :]))              # (B,t,nh)
-    h = torch.einsum("btsh,bshd->bthd", scores.to(v.dtype).float(),
-                     v.float())
-    return (h / norm[..., None]).to(v.dtype)
-
+                   i_gate: torch.Tensor, f_gate: torch.Tensor, *,
+                   scale: float | None = None) -> torch.Tensor:
+    """q/k/v: (B,S,nh,dh); i/f raw gate logits: (B,S,nh) -> h (B,S,nh,dh):
+    the model's parallel form with the scores rounded to v's type before
+    the PV product.  ``scale`` replaces ``1 / sqrt(dh)`` when given."""
+    return _model.mlstm_parallel(q, k, v, i_gate, f_gate, scale=scale,
+                                 round_scores=True)
 
 
 def mlstm_known_stabiliser(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -11,7 +11,9 @@ Conventions, as in the reference:
 Prefill attention (no ``kv_valid``) goes through the flash attention
 kernel's front door for any sequence length; it takes the place of both
 the reference's ``chunked_attention`` and its short-sequence einsum.  The
-decode step (``kv_valid`` given) stays the plain einsum attention.  The
+decode step (``kv_valid`` given) and training (``impl="einsum"``, the
+reference's default for a loss: the kernel has no backward) run the
+plain einsum attention.  The
 reference's sharding constraints have no counterpart on one device.
 """
 
@@ -43,7 +45,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """positions: (B, S) integer -> cos/sin (B, S, hd/2) in float32.
-    (M-RoPE, the reference's ``sections``, is not ported: ROADMAP A13.)"""
+    (M-RoPE, the reference's ``sections``, is not ported: ROADMAP A3.)"""
     half = head_dim // 2
     idx = torch.arange(half, dtype=torch.float32, device=positions.device)
     freq = theta ** (-idx * 2.0 / head_dim)
@@ -118,17 +120,19 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(v.dtype)
 
 
-#: prefill attention routes: the flash attention kernel's front door, or
-#: its plain version (``chip_smoke.py`` holds the one against the other)
-PREFILL_IMPLS = ("kernel", "plain")
+#: attention routes without a cache: the flash attention kernel's front
+#: door, or its plain version (``chip_smoke.py`` holds the one against the
+#: other), for prefill; the einsum attention for training
+PREFILL_IMPLS = ("kernel", "plain", "einsum")
 
 
 def attention(q, k, v, *, q_pos, kv_pos, causal=True, window=0,
               kv_valid=None, impl: str = "kernel"):
     """Prefill (``kv_valid is None``): flash attention, whose positions run
     from 0 (``q_pos``/``kv_pos`` are ``arange``), by the ``impl`` route.
-    Decode: einsum attention over the populated cache."""
-    if kv_valid is None:
+    Decode, and ``impl="einsum"``: einsum attention (over the populated
+    cache, for decode)."""
+    if kv_valid is None and impl != "einsum":
         if impl == "kernel":
             return flash_ops.flash_attention(q, k, v, causal=causal,
                                              window=window)
@@ -179,6 +183,37 @@ def logits_from_hidden(x, params, tie: bool):
     if tie:
         return x.float() @ params["embed"].float().T
     return x.float() @ params["unembed"].float()
+
+
+def _gold_logit(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits[b, s, labels[b, s]] (labels < 0 read class 0; they are
+    masked by the caller)."""
+    lab = torch.clamp(labels, min=0).long()
+    return torch.gather(logits, -1, lab[..., None])[..., 0]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+    """Mean token NLL in float32; labels < 0 are masked (the chunked form
+    is ``transformer.decoder_loss``'s)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    nll = lse - _gold_logit(logits, labels)
+    mask = (labels >= 0).float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+# --------------------------------------------------------------------------
+# Stacked layers
+# --------------------------------------------------------------------------
+def unstack_layers(tree: dict, lead: int) -> list[dict]:
+    """Per-layer dicts of views of stacked tensors whose first ``lead``
+    axes index the layer, taken with one ``unbind`` each, so a backward
+    pass stacks the layer gradients once instead of summing a full-size
+    gradient a layer."""
+    names = list(tree)
+    return [dict(zip(names, ws)) for ws in zip(
+        *(tree[n].flatten(0, lead - 1).unbind(0) for n in names))]
 
 
 # --------------------------------------------------------------------------

@@ -9,23 +9,26 @@ Heterogeneous attention (gemma3's 5 local : 1 global) is a per-layer
 window: 0 for global layers, ``sliding_window`` for local ones.
 
 Prefill attention runs the flash attention kernel (``layers.attention``);
-decode attends over the cache with the plain einsum attention.  MoE and
-the VLM backbone (M-RoPE, vision prefix) are not ported yet: they raise
-``NotImplementedError`` (ROADMAP A13).
+decode attends over the cache with the plain einsum attention, and so
+does the training loss (``decoder_loss``, as the reference's default
+``attn_impl="einsum"``).  MoE and the VLM backbone (M-RoPE, vision
+prefix) are not ported yet: they raise ``NotImplementedError`` (ROADMAP
+A3).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 
-_NOT_PORTED = ("{what} is not ported to repro_torch yet (ROADMAP A13: "
-               "MoE, VLM, encdec and hybrid serving come after the dense "
-               "and ssm families)")
+_NOT_PORTED = ("{what} is not ported to repro_torch yet (ROADMAP A3: "
+               "MoE, VLM, encdec and hybrid serving and training come "
+               "after the dense and ssm families)")
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -125,9 +128,14 @@ def _ffn(x, p, cfg):
 # Forward (prefill hidden states)
 # --------------------------------------------------------------------------
 def decoder_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
-                   attn_impl: str = "kernel", collect_kv: bool = False):
+                   attn_impl: str = "kernel", remat_policy: str = "none",
+                   collect_kv: bool = False):
     """tokens (B,S) -> hidden (B,S,D); optionally per-layer (k, v) stacks
-    (L, B, S, KV, hd)."""
+    (L, B, S, KV, hd).  ``remat_policy`` ``"full"`` or ``"dots"`` wraps
+    each layer in ``torch.utils.checkpoint`` (non-reentrant), as the
+    reference wraps its layer body in ``jax.checkpoint``; values are the
+    same (there is no counterpart of the ``dots`` save policy: the whole
+    layer is recomputed)."""
     _check_dense(cfg)
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32,
@@ -135,13 +143,21 @@ def decoder_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     cos, sin = L.rope_cos_sin(positions, cfg.resolved_head_dim,
                               cfg.rope_theta)
     x = L.embed_tokens(params["embed"], tokens)
-    ks, vs = [], []
-    for i, window in enumerate(layer_windows(cfg)):
-        p = _layer(params, i)
-        attn_out, k, v = _attn_block(L.rmsnorm(x, p["attn_norm"]), p, cos,
+
+    def body(h, p, window):
+        attn_out, k, v = _attn_block(L.rmsnorm(h, p["attn_norm"]), p, cos,
                                      sin, positions[0], window, attn_impl)
-        x = x + attn_out
-        x = x + _ffn(L.rmsnorm(x, p["mlp_norm"]), p, cfg)
+        h = h + attn_out
+        return h + _ffn(L.rmsnorm(h, p["mlp_norm"]), p, cfg), k, v
+
+    ks, vs = [], []
+    for p, window in zip(L.unstack_layers(params["layers"], 1),
+                         layer_windows(cfg)):
+        if remat_policy == "none":
+            x, k, v = body(x, p, window)
+        else:
+            x, k, v = torch.utils.checkpoint.checkpoint(
+                body, x, p, window, use_reentrant=False)
         if collect_kv:
             ks.append(k)
             vs.append(v)
@@ -149,6 +165,38 @@ def decoder_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     if collect_kv:
         return x, (torch.stack(ks), torch.stack(vs))
     return x
+
+
+def decoder_logits(cfg: ModelConfig, params: dict,
+                   hidden: torch.Tensor) -> torch.Tensor:
+    """(B,S,D) -> (B,S,Vpad) float32 logits."""
+    return L.logits_from_hidden(hidden, params, cfg.tie_embeddings)
+
+
+def decoder_loss(cfg: ModelConfig, params: dict, batch: dict, *,
+                 remat_policy: str = "dots", loss_chunk: int = 0
+                 ) -> torch.Tensor:
+    """Mean next-token NLL of ``batch["tokens"]`` against
+    ``batch["labels"]`` (labels < 0 masked).  With ``loss_chunk`` dividing
+    the sequence, the logits are formed ``loss_chunk`` positions at a
+    time, never all (B,S,V) at once."""
+    _check_dense(cfg)
+    hidden = decoder_hidden(cfg, params, batch["tokens"],
+                            attn_impl="einsum", remat_policy=remat_policy)
+    labels = batch["labels"]
+    if loss_chunk and hidden.shape[1] % loss_chunk == 0:
+        tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for h, lab in zip(hidden.split(loss_chunk, dim=1),
+                          labels.split(loss_chunk, dim=1)):
+            logits = decoder_logits(cfg, params, h).float()
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = L._gold_logit(logits, lab)
+            mask = (lab >= 0).float()
+            tot = tot + torch.sum((lse - gold) * mask)
+            cnt = cnt + torch.sum(mask)
+        return tot / torch.clamp(cnt, min=1.0)
+    return L.cross_entropy(decoder_logits(cfg, params, hidden), labels)
 
 
 # --------------------------------------------------------------------------

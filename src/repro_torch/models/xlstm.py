@@ -5,7 +5,10 @@ reference's ``repro.models.xlstm`` in PyTorch.
 Prefill runs the mLSTM over the whole prompt through the chunkwise mLSTM
 kernel's front door (where the reference calls its XLA twin
 ``mlstm_chunked``); decode uses the O(1)/token recurrent forms.  There is
-no KV cache, only per-layer state.
+no KV cache, only per-layer state.  Training (``xlstm_hidden``,
+``xlstm_loss``) runs the reference's own mLSTM forms under autograd,
+``mlstm_chunked`` and its fallback ``mlstm_parallel`` (the kernel has no
+backward, and the reference's loss calls none).
 
 Layout, as in the reference: layers come in GROUPS of ``slstm_every``
 (7 mLSTM + 1 sLSTM) with stacked params: mLSTM params lead with (G, 7, ...),
@@ -19,11 +22,12 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mlstm import ops as mlstm_ops
-from repro_torch.kernels.mlstm.ref import mlstm_parallel
+from repro_torch.kernels.mlstm import ref as mlstm_ref
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import padded_vocab
 
@@ -92,8 +96,90 @@ def init_xlstm(cfg: ModelConfig, gen: torch.Generator,
 
 
 # --------------------------------------------------------------------------
-# mLSTM: kernel (prefill) + recurrent (decode)
+# mLSTM: parallel and chunked (training), kernel (prefill), recurrent (decode)
 # --------------------------------------------------------------------------
+def mlstm_parallel(q, k, v, i_gate, f_gate, *, scale: float | None = None,
+                   round_scores: bool = False):
+    """q/k/v: (B,S,nh,dh); i/f raw gate logits: (B,S,nh) -> h (B,S,nh,dh).
+
+    D[t,s] = cumlogsig(f)[t] - cumlogsig(f)[s] + i[s]  (s <= t), stabilized
+    per row; h = (exp(D - m) * (q k^T / sqrt(dh))) v / max(|row sum|, e^-m).
+    ``scale`` replaces ``1 / sqrt(dh)`` when given.  The reference's model
+    form keeps the gated scores float32 into the product with v;
+    ``round_scores`` rounds them to v's type first, as the Pallas kernel
+    does (the kernel's plain version, ``kernels/mlstm/ref.py``, is this
+    function with that flag).  In f32 the two are the same function.
+    """
+    B, S, nh, dh = q.shape
+    logf = F.logsigmoid(f_gate.float())                        # (B,S,nh)
+    cum = torch.cumsum(logf, dim=1)
+    ii = i_gate.float()
+    D = cum[:, :, None, :] - cum[:, None, :, :] + ii[:, None, :, :]
+    t_idx = torch.arange(S, device=q.device)
+    causal = t_idx[:, None] >= t_idx[None, :]
+    D = torch.where(causal[None, :, :, None], D, -torch.inf)   # (B,t,s,nh)
+    m = torch.amax(D, dim=2, keepdim=True)                      # (B,t,1,nh)
+    d_exp = torch.exp(D - m)
+    scores = torch.einsum("bthd,bshd->btsh", q.float(), k.float())
+    if scale is None:
+        scale = dh ** -0.5
+    scores = scores * scale * d_exp
+    norm = torch.maximum(torch.abs(scores.sum(dim=2)),
+                         torch.exp(-m[:, :, 0, :]))              # (B,t,nh)
+    if round_scores:
+        scores = scores.to(v.dtype).float()
+    h = torch.einsum("btsh,bshd->bthd", scores, v.float())
+    return (h / norm[..., None]).to(v.dtype)
+
+
+def mlstm_chunked(q, k, v, i_gate, f_gate, *, chunk: int = 1024):
+    """Blockwise mLSTM: the math of :func:`mlstm_parallel` without the
+    (S, S) gating matrix, O(S * chunk) live memory (the reference's XLA
+    twin of the kernel).  Query chunks in turn, each over the key chunks
+    up to its own with a running (m, n, acc) in the xLSTM stabilized form.
+    Falls back to the parallel form when ``chunk`` does not divide S or
+    S <= chunk, as the reference does.  (The reference also folds the key
+    chunks after the query chunk; they are fully masked, and folding one
+    leaves m, n and acc exactly as they were, so they are skipped here.)
+    """
+    B, S, nh, dh = q.shape
+    if S % chunk != 0 or S <= chunk:
+        return mlstm_parallel(q, k, v, i_gate, f_gate)
+    nc = S // chunk
+    logf = F.logsigmoid(f_gate.float())
+    cum = torch.cumsum(logf, dim=1)                          # (B,S,nh)
+    ii = i_gate.float()
+    scale = dh ** -0.5
+    pos = torch.arange(S, dtype=torch.int32, device=q.device).reshape(
+        nc, chunk)
+    qc, kc, vc = (t.split(chunk, dim=1) for t in (q, k, v))
+    Fc, ic = cum.split(chunk, dim=1), ii.split(chunk, dim=1)
+    outs = []
+    for a in range(nc):
+        m = torch.full((B, chunk, nh), -torch.inf, device=q.device)
+        n = torch.zeros((B, chunk, nh), device=q.device)
+        acc = torch.zeros((B, chunk, nh, dh), device=q.device)
+        for b in range(a + 1):
+            d = Fc[a][:, :, None, :] - Fc[b][:, None, :, :] \
+                + ic[b][:, None, :, :]                        # (B,cq,ck,nh)
+            causal = pos[a][:, None] >= pos[b][None, :]
+            d = torch.where(causal[None, :, :, None], d, -torch.inf)
+            m_new = torch.maximum(m, torch.amax(d, dim=2))    # (B,cq,nh)
+            m_safe = torch.clamp(m_new, min=-1e30)           # rows w/o keys
+            gate = torch.exp(d - m_safe[:, :, None, :])
+            s = torch.einsum("bthd,bshd->btsh", qc[a].float(),
+                             kc[b].float()) * scale * gate
+            corr = torch.exp(torch.clamp(m, min=-1e30) - m_safe)
+            corr = torch.where(torch.isfinite(m), corr, 0.0)
+            n = corr * n + torch.sum(s, dim=2)
+            acc = corr[..., None] * acc + torch.einsum(
+                "btsh,bshd->bthd", s, vc[b].float())
+            m = m_new
+        denom = torch.maximum(torch.abs(n), torch.exp(-m))
+        outs.append((acc / denom[..., None]).to(v.dtype))
+    return torch.cat(outs, dim=1)
+
+
 def mlstm_step(state, q, k, v, i_gate, f_gate):
     """Recurrent mLSTM. state: C (B,nh,dh,dh), n (B,nh,dh), m (B,nh).
     q/k/v: (B,nh,dh); gates (B,nh). Returns (new_state, h (B,nh,dh))."""
@@ -133,20 +219,22 @@ def _mlstm_out(x, hh, z, p, di):
 
 
 def _mlstm_seq(q, k, v, i_g, f_g, impl: str):
+    """The prefill mLSTM by route: the kernel or its plain version."""
     if impl == "kernel":
         return mlstm_ops.mlstm(q, k, v, i_g, f_g)
     if impl == "plain":
-        return mlstm_parallel(q, k, v, i_g, f_g)
+        return mlstm_ref.mlstm_parallel(q, k, v, i_g, f_g)
     raise ValueError(f"mlstm impl {impl!r} not in ('kernel', 'plain')")
 
 
 def mlstm_block(x, p, cfg, *, state=None):
     """Pre-norm residual mLSTM block. ``state`` triggers the recurrent path
-    (decode, S==1); returns (out, new_state)."""
+    (decode, S==1); without it the whole sequence runs through
+    :func:`mlstm_chunked` (training).  Returns (out, new_state)."""
     d, di, nh, dh = _dims(cfg)
     z, q, k, v, i_g, f_g = _mlstm_inputs(x, p)
     if state is None:
-        hh = mlstm_ops.mlstm(q, k, v, i_g, f_g)
+        hh = mlstm_chunked(q, k, v, i_g, f_g)
         new_state = None
     else:
         new_state, h1 = mlstm_step(state, q[:, 0], k[:, 0], v[:, 0],
@@ -218,12 +306,51 @@ def slstm_block(x, p, cfg, *, state=None):
 
 
 # --------------------------------------------------------------------------
-# Serving state: prefill + decode
+# Full model: training forward and loss
 # --------------------------------------------------------------------------
 def _group_params(params: dict, g: int, m: int | None = None) -> dict:
     if m is None:
         return {k: w[g] for k, w in params["slstm"].items()}
     return {k: w[g, m] for k, w in params["mlstm"].items()}
+
+
+def xlstm_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                 remat_policy: str = "dots") -> torch.Tensor:
+    """tokens (B,S) -> final-normed hidden (B,S,D).  A ``remat_policy``
+    other than ``"none"`` wraps each group (its mLSTM layers and its
+    sLSTM) in ``torch.utils.checkpoint`` (non-reentrant), as the reference
+    wraps its group body in ``jax.checkpoint``; values are the same."""
+    G, M = _groups(cfg)
+    x = L.embed_tokens(params["embed"], tokens)
+    mlayers = L.unstack_layers(params["mlstm"], 2)
+    slayers = L.unstack_layers(params["slstm"], 1)
+
+    def group_body(h, g):
+        for lp in mlayers[g * M:(g + 1) * M]:
+            h, _ = mlstm_block(h, lp, cfg)
+        h, _ = slstm_block(h, slayers[g], cfg)
+        return h
+
+    for g in range(G):
+        if remat_policy == "none":
+            x = group_body(x, g)
+        else:
+            x = torch.utils.checkpoint.checkpoint(group_body, x, g,
+                                                  use_reentrant=False)
+    return L.rmsnorm(x, params["final_norm"])
+
+
+def xlstm_loss(cfg: ModelConfig, params: dict, batch: dict, *,
+               remat_policy: str = "dots", **_) -> torch.Tensor:
+    """Mean next-token NLL, tied-embedding logits in float32."""
+    hidden = xlstm_hidden(cfg, params, batch["tokens"], remat_policy)
+    logits = hidden.float() @ params["embed"].float().T
+    return L.cross_entropy(logits, batch["labels"])
+
+
+# --------------------------------------------------------------------------
+# Serving state: prefill + decode
+# --------------------------------------------------------------------------
 
 
 def init_xlstm_state(cfg: ModelConfig, batch: int,

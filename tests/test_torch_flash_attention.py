@@ -162,10 +162,39 @@ def test_front_door_on_cpu_builds_nothing(monkeypatch):
                                   torch.zeros((1, 8, 3, 16)))
 
 
+@pytest.mark.parametrize("hd,width", [(16, 64), (32, 64), (320, 512)])
+def test_padded_head_width_is_the_plain_version(hd, width):
+    """What the CUDA route does at a head width it is not compiled for:
+    q, k, v zero-padded to the next compiled width, the plain version run
+    there with the true width's scale, the output cut back.  At 2e-5 (the
+    f32 band: the padded sums add zeros in another order)."""
+    from repro_torch.kernels.head_width import kernel_width, run_padded
+    assert kernel_width(hd, flash_ops.HEAD_DIMS, "flash_attention") == width
+    rng = np.random.default_rng(hd)
+    q = torch.from_numpy(_randn(rng, (2, 150, 4, hd)))
+    k, v = (torch.from_numpy(_randn(rng, (2, 150, 2, hd))) for _ in "kv")
+    for causal, window in ((True, 0), (True, 40), (False, 0)):
+        got = run_padded(flash_ref.flash_attention, q, k, v,
+                         widths=flash_ops.HEAD_DIMS, what="flash_attention",
+                         causal=causal, window=window)
+        assert got.shape == q.shape
+        want = flash_ref.flash_attention(q, k, v, causal=causal,
+                                         window=window)
+        torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+
+
+def test_head_width_above_the_largest_raises():
+    from repro_torch.kernels.head_width import kernel_width
+    with pytest.raises(ValueError, match="up to 512"):
+        kernel_width(576, flash_ops.HEAD_DIMS, "flash_attention")
+
+
 def test_kernel_matches_plain_version_on_the_card():
     """f32 (the CUDA-core kernel) at 2e-5, and bf16 at hd 64, 128, 256
     (the tensor-core kernel) and 512 (the CUDA-core kernel) within the
-    bf16 band, with prompts no 128-row tile divides and windows."""
+    bf16 band, with prompts no 128-row tile divides and windows; hd 16 and
+    32 (zero-padded to 64) in both dtypes, including the reference's
+    ``(2, 3, 384, 32, window 128)`` case."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py runs this check "
                     "on the card")
@@ -190,6 +219,18 @@ def test_kernel_matches_plain_version_on_the_card():
                                          window=window)
         torch.testing.assert_close(got.float(), want.float(),
                                    rtol=BF16_TOL, atol=BF16_TOL)
+    for hd, S, window, dtype, tol in ((32, 384, 128, torch.float32, TOL),
+                                      (16, 200, 0, torch.float32, TOL),
+                                      (32, 300, 64, torch.bfloat16, BF16_TOL),
+                                      (16, 130, 0, torch.bfloat16,
+                                       BF16_TOL)):
+        q, k, v = (torch.from_numpy(_randn(rng, (2, S, n, hd))).to(dtype)
+                   for n in (3, 3, 3))
+        got = flash_ops.flash_attention(q.to(dev), k.to(dev), v.to(dev),
+                                        window=window).cpu()
+        want = flash_ref.flash_attention(q, k, v, window=window)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
     # A base address off the 16-byte grid (TMA's tensor maps refuse one):
     # the front door copies the input first.
     q, k, v = (torch.from_numpy(_randn(rng, (1, 64, n, 128))).to(

@@ -220,7 +220,26 @@ def test_routes_by_dtype_and_head_width():
         for dh in mlstm_ops.HEAD_DIMS}
 
 
+@pytest.mark.parametrize("dh,width", [(16, 64), (32, 64), (320, 512)])
+def test_padded_head_width_is_the_plain_version(dh, width):
+    """What the CUDA route does at a head width it is not compiled for
+    (the smoke xLSTM's dh 32, the 100m scale's dh 320): q, k, v
+    zero-padded to the next compiled width, the plain version run there
+    with the true width's scale, the output cut back.  At 5e-4, the
+    gates-centred-at-0 band above."""
+    from repro_torch.kernels.head_width import kernel_width, run_padded
+    assert kernel_width(dh, mlstm_ops.HEAD_DIMS, "mlstm") == width
+    _, pt = _both(_inputs(dh, 2, 130, 2, dh, 0.0))
+    got = run_padded(mlstm_plain.mlstm_parallel, *pt,
+                     widths=mlstm_ops.HEAD_DIMS, what="mlstm")
+    assert got.shape == pt[0].shape
+    torch.testing.assert_close(got, mlstm_plain.mlstm_parallel(*pt),
+                               rtol=5e-4, atol=5e-4)
+
+
 def test_kernel_matches_plain_version_on_the_card():
+    """f32 at dh 64 and 32 (zero-padded to 64) at 5e-4; bf16 at dh 512
+    and 320 (zero-padded to 512) in the row-scaled 3e-2 band."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py runs this check "
                     "on the card")
@@ -243,3 +262,13 @@ def test_kernel_matches_plain_version_on_the_card():
         q_off.copy_(pt[0])
         ok, err = _row_band(mlstm_ops.mlstm(q_off, *pt[1:]), want, 3e-2)
         assert ok, (S, "q off the 16-byte grid", err)
+    for S in (128, 256):
+        _, pt = _both(_inputs(S + 2, 1, S, 3, 32, 0.0))
+        got = mlstm_ops.mlstm(*(a.to(dev) for a in pt)).cpu()
+        torch.testing.assert_close(got, mlstm_plain.mlstm_parallel(*pt),
+                                   rtol=5e-4, atol=5e-4)
+    _, pt = _both(_inputs(320, 2, 200, 4, 320, 2.0))
+    pt = [a.to(dev, torch.bfloat16) for a in pt]
+    ok, err = _row_band(mlstm_ops.mlstm(*pt),
+                        mlstm_plain.mlstm_parallel(*pt), 3e-2)
+    assert ok, ("dh 320", err)
