@@ -13,9 +13,16 @@ Phases, each printed on its own lines; any failure exits non-zero:
    with the numpy host path at the main paths' shapes), the median of 20
    CUDA-event timings of one wrapper call after 3 warm-ups, the device
    time alone (20 launches in one CUDA graph), bytes moved, the
-   published-peak bound and the bound from a same-size ``copy_``
-   measured here, and the time of one PyTorch call computing the same
-   function where there is one.
+   published-peak bound (and the kernel's share of it) and the bound
+   from a same-size ``copy_`` measured here, and the time of one PyTorch
+   call computing the same function where there is one (for dequantize
+   a per-channel quantized tensor's ``.dequantize()``, held bitwise and
+   timed over back-to-back calls, since no CUDA graph captures it).  The
+   top-k scatter and dequantize are also held at their edge cases:
+   unordered rows and duplicates over many tiles beside increasing ones,
+   one tile, K = 0, widths off the 16-byte grid, 70,000 rows and bad
+   indices (which must raise); n % 4 = 1, 2, 3, blocks of 1000, 7 and 1,
+   the top-k tier lengths, 65,537 rows and codes off the grid.
 3. The 24 pinned orchestrator replays (6 scenarios x mudp, udp, tcp,
    mudp+fec) under both packet engines with the fedavg kernel: each must
    reproduce the reference's digest.
@@ -95,6 +102,10 @@ Launch counts are zeroed just before each path (phases 4, 5, the
 checksum pass of 5, the serving run of 6 and of 7, the training steps of
 8 and the rounds of 9) and read just after it, so the comparison launches of phase 2, of the ``encode_batch``
 check and of the serving holds do not count.
+
+``--parent DIR`` builds the top-k scatter and dequantize of a checkout from before
+their redesign and times each just before and just after this one at
+every phase-2 shape, on the same card.
 
 It exits non-zero with no result when CUDA is unavailable.
 """
@@ -317,6 +328,28 @@ def device_ms(fn, calls: int = 20) -> float:
     return statistics.median(times)
 
 
+def device_ms_events(fn, calls: int = 20) -> float:
+    """Device time of one ``fn()`` for calls a CUDA graph cannot capture:
+    ``calls`` calls back to back between two CUDA events, the median of
+    REPS such runs divided by ``calls``.  The host's launches overlap the
+    device's work, so at a shape that keeps the device busy longer than a
+    launch takes this reads the device's time."""
+    import torch
+    for _ in range(WARMUP):
+        fn()
+    times = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
 def bits_equal(a, b) -> bool:
     import torch
     if a.dtype == torch.float32:
@@ -334,26 +367,89 @@ def bound_ms(nbytes: int, flops: int,
 # --------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
-def check_kernels():
+class ParentKernels:
+    """The top-k scatter and dequantize launchers of a checkout from before
+    their redesign (``--parent DIR``), built with the port's flags into
+    ``build/torch_kernels/parent-*.so``, so that phase 2 times each beside
+    the kernel that replaced it, in turns, in one run.  Their C interface
+    is that checkout's: ``topk_scatter_f32(idx, vals, out, rows, K, n, err,
+    stream)`` and ``dequantize_i8_f32(q, scales, out, rows, n, nb, block,
+    stream)``."""
+
+    FAMILIES = ("topk", "quantize")
+
+    def __init__(self, root: str):
+        from repro_torch.kernels import _build
+        kdir = os.path.join(os.path.abspath(root), "src", "repro_torch",
+                            "kernels")
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        self.libs = {f: _build.BUILD_DIR / f"parent-{f}.so"
+                     for f in self.FAMILIES}
+        self.procs = [subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{kdir}/csrc", "-o",
+             str(self.libs[f]), os.path.join(kdir, _build.SOURCES[f])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for f in self.FAMILIES]
+
+    def load(self) -> None:
+        """Wait for the two builds (started in __init__) and load them."""
+        import ctypes
+        for f, proc in zip(self.FAMILIES, self.procs):
+            log = proc.communicate()[0].decode(errors="replace")
+            if proc.returncode:
+                raise AssertionError(f"parent {f} build failed:\n{log}")
+        ptr, ll = ctypes.c_void_p, ctypes.c_longlong
+        self.topk = ctypes.CDLL(str(self.libs["topk"]))
+        self.topk.topk_scatter_f32.argtypes = [ptr, ptr, ptr, ll, ll, ll,
+                                               ptr, ptr]
+        self.quant = ctypes.CDLL(str(self.libs["quantize"]))
+        self.quant.dequantize_i8_f32.argtypes = [
+            ptr, ptr, ptr, ll, ll, ctypes.c_int, ctypes.c_int, ptr]
+
+    @staticmethod
+    def _stream(t) -> int:
+        import torch
+        return torch.cuda.current_stream(t.device).cuda_stream
+
+    def scatter(self, idx, vals, out, err) -> None:
+        rows, k = idx.shape
+        rc = self.topk.topk_scatter_f32(
+            idx.data_ptr(), vals.data_ptr(), out.data_ptr(), rows, k,
+            out.shape[1], err.data_ptr(), self._stream(idx))
+        if rc:
+            raise AssertionError(f"parent topk_scatter_f32: cudaError {rc}")
+
+    def dequantize(self, q, scales, out, block) -> None:
+        rows, nb = scales.shape
+        rc = self.quant.dequantize_i8_f32(
+            q.data_ptr(), scales.data_ptr(), out.data_ptr(), rows,
+            out.shape[1], nb, block, self._stream(q))
+        if rc:
+            raise AssertionError(f"parent dequantize_i8_f32: cudaError {rc}")
+
+
+def check_kernels(parent: ParentKernels | None = None):
     import numpy as np
     import torch
-    from repro_torch.core import compression
     from repro_torch.kernels.fedavg import ops as fedavg_ops
     from repro_torch.kernels.fedavg import ref as fedavg_ref
-    from repro_torch.kernels.quantize import ops as quant_ops
-    from repro_torch.kernels.quantize import ref as quant_ref
 
     dev = torch.device("cuda")
     rows: dict[str, dict[str, dict]] = {}   # name -> shape name -> rec
 
     def record(name, key, shape, nbytes, flops, kernel_fn, plain_fn, lib_fn,
-               err, launch_fn=None, peak_flops=PEAK_F32_FLOPS):
+               err, launch_fn=None, peak_flops=PEAK_F32_FLOPS,
+               parent_fn=None, lib_in_graph=True):
         """Time the kernel, its plain version and the library call (if
         any) both ways: per call (host launch included) and on the device
         alone; keep the numbers under rows[name][key].  ``launch_fn``,
         where given, is the bare launch into preallocated buffers that
         the device timing captures in place of the wrapper (whose read of
-        the kernel's bad-index flag waits for the host)."""
+        the kernel's bad-index flag waits for the host).  ``parent_fn``,
+        where given, is the launch it replaced (``--parent``): its device
+        time is taken just before and just after the others'.  A library
+        call that a CUDA graph cannot capture (``lib_in_graph=False``) is
+        timed on the device by ``device_ms_events``."""
         bnd, by = bound_ms(nbytes, flops, peak_flops)
         n = max(1, nbytes // 2)
         src = torch.empty(n, dtype=torch.uint8, device=dev)
@@ -361,8 +457,12 @@ def check_kernels():
         fns = {"ms": kernel_fn, "plain_ms": plain_fn, "library_ms": lib_fn,
                "copy_ms": lambda: dst.copy_(src)}
         per_call = {k: time_ms(f) if f else None for k, f in fns.items()}
-        on_dev = {k: device_ms(f) if f else None
+        parent = [device_ms(parent_fn)] if parent_fn else []
+        on_dev = {k: (device_ms_events if k == "library_ms"
+                      and not lib_in_graph else device_ms)(f) if f else None
                   for k, f in dict(fns, ms=launch_fn or kernel_fn).items()}
+        if parent_fn:
+            parent.append(device_ms(parent_fn))
         del src, dst
 
         def fmt(d):
@@ -371,7 +471,13 @@ def check_kernels():
         say(f"  {name} {shape}: per call: {fmt(per_call)}; device: "
             f"{fmt(on_dev)}; {nbytes} bytes, "
             f"{nbytes / on_dev['ms'] / 1e6:.1f} GB/s on the device, bound "
-            f"{bnd:.6f} ms ({by}), max_abs_err {err}")
+            f"{bnd:.6f} ms ({by}, {bnd / on_dev['ms']:.3f} of it), "
+            f"max_abs_err {err}")
+        if parent:
+            say(f"    parent's kernel on the device: {parent[0]:.6f} / "
+                f"{parent[1]:.6f} ms (before / after); this one "
+                f"{on_dev['ms']:.6f} ms, "
+                f"{on_dev['ms'] / statistics.mean(parent):.3f} of it")
         if peak_flops == PEAK_BF16_FLOPS:
             say("    on the device: " + "; ".join(
                 f"{k} {flops / t / 1e9:.1f} TFLOP/s ({bnd / t:.4f} of the "
@@ -383,7 +489,8 @@ def check_kernels():
             "library_ms": per_call["library_ms"], "bound_ms": bnd,
             "bound_by": by, "copy_bound_ms": per_call["copy_ms"],
             "bytes": nbytes, "flops": flops, "max_abs_err": err,
-            "device": on_dev}
+            "device": on_dev, "parent_device_ms": parent or None}
+
 
     # -- fedavg --------------------------------------------------------------
     for key, (k, n) in SHAPES["fedavg"].items():
@@ -416,7 +523,75 @@ def check_kernels():
                lambda: fedavg_ref.fedavg(stack, w),
                lambda: w @ stack, float((out - plain).abs().max()))
 
-    # -- quantize / dequantize -----------------------------------------------
+    check_quantize(dev, record, parent)
+    check_dequantize_edges(dev)
+    check_topk(dev, record, parent)
+    check_topk_edges(dev)
+    check_checksum(dev, record)
+    check_lm_kernels(dev, record, rows)
+    check_head_widths(dev, rows)
+    check_lm_fl_kernels(dev, record, parent)
+    return rows
+
+
+def _dequantize_library(q, scales, n: int, block: int, want):
+    """The one PyTorch call that computes dequantize: a per-channel
+    quantized tensor of the codes, one channel a block (built once, here),
+    whose ``.dequantize()`` is timed.  Returns (the call or None, what to
+    print); the call's output is held bitwise against ``want`` (it also
+    expands the padded lanes, which the comparison drops)."""
+    import torch
+    rows, nb = scales.shape
+    try:
+        qt = torch._make_per_channel_quantized_tensor(
+            q.view(rows * nb, block), scales.reshape(-1).double(),
+            torch.zeros(rows * nb, dtype=torch.long, device=q.device), 0)
+        got = qt.dequantize().view(rows, nb * block)[:, :n]
+    except (RuntimeError, NotImplementedError) as e:
+        return None, f"none ({type(e).__name__}: {str(e).splitlines()[0]})"
+    return qt.dequantize, (f"bitwise equal to the kernel: "
+                           f"{bits_equal(got, want)}; a CUDA graph cannot "
+                           f"capture it, so its device time is 20 calls "
+                           f"back to back between two events")
+
+
+def _record_dequantize(record, key, q, scales, n, block, out, parent) -> None:
+    """Time dequantize at one shape (``out``: the kernel's output, already
+    held against the plain version), with the library yardstick and, under
+    ``--parent``, the launch it replaced."""
+    import torch
+    from repro_torch.kernels.quantize import ops as quant_ops
+    from repro_torch.kernels.quantize import ref as quant_ref
+    rows, nb = scales.shape
+    lib_fn, lib_note = _dequantize_library(q, scales, n, block, out)
+    say(f"  dequantize {(rows, n)} library yardstick "
+        f"(per-channel quantized tensor .dequantize()): {lib_note}")
+    parent_fn = None
+    if parent is not None:
+        old = torch.empty_like(out)
+        parent.dequantize(q, scales, old, block)
+        torch.cuda.synchronize()
+        if not bits_equal(old, out):
+            raise AssertionError(f"dequantize {(rows, n)}: the parent's "
+                                 f"kernel disagrees with this one")
+        parent_fn = lambda: parent.dequantize(q, scales, old, block)  # noqa
+    # Reads the n codes of a row that it expands and the scales, writes
+    # the output; one multiply an element.
+    record("dequantize", key, (rows, n), rows * n + 4 * rows * nb
+           + 4 * rows * n, rows * n,
+           lambda: quant_ops.dequantize(q, scales, n, block),
+           lambda: quant_ref.dequantize(q, scales, n, block), lib_fn,
+           0.0, parent_fn=parent_fn, lib_in_graph=False)
+
+
+def check_quantize(dev, record, parent) -> None:
+    """Phase 2 for quantize and dequantize at SHAPES["quantize"]."""
+    import numpy as np
+    import torch
+    from repro_torch.core import compression
+    from repro_torch.kernels.quantize import ops as quant_ops
+    from repro_torch.kernels.quantize import ref as quant_ref
+
     for key, (r, n) in SHAPES["quantize"].items():
         host_data = key != "large"
         if host_data:
@@ -446,27 +621,72 @@ def check_kernels():
                 raise AssertionError("dequantize: kernel != numpy host path")
         qerr = max(float((q.int() - q_ref.int()).abs().max()),
                    float((s - s_ref).abs().max()))
-        derr = float((deq - deq_ref).abs().max())
         # quantize reads x and writes every code (padding included) and
-        # scale; dequantize reads only the n codes of a row that it
-        # expands, and the scales.
+        # scale; |x|, max, divide, round, two clamps per element (the
+        # padded lanes need none of it).
         qbytes = 4 * r * n + r * nb * BLOCK + 4 * r * nb
-        dbytes = r * n + 4 * r * nb + 4 * r * n
-        # quantize: |x|, max, divide, round, two clamps per element; the
-        # padded lanes need none of it.  dequantize: one multiply each.
         record("quantize", key, (r, n), qbytes, 6 * r * n,
                lambda: quant_ops.quantize(x, BLOCK),
                lambda: quant_ref.quantize(x, BLOCK), None, qerr)
-        record("dequantize", key, (r, n), dbytes, r * n,
-               lambda: quant_ops.dequantize(q, s, n, BLOCK),
-               lambda: quant_ref.dequantize(q, s, n, BLOCK), None, derr)
+        _record_dequantize(record, key, q, s, n, BLOCK, deq, parent)
+    # The fleet path decodes int8 after topk: one client's kept values at
+    # each tier's length (its error-feedback decode).
+    for tier, k in TIER_K.items():
+        x_np = np.random.default_rng(6).standard_normal(
+            (1, k)).astype(np.float32)
+        q_np, s_np = compression.quantize_int8_batch(x_np, BLOCK)
+        q, s = torch.from_numpy(q_np).to(dev), torch.from_numpy(s_np).to(dev)
+        deq = quant_ops.dequantize(q, s, k, BLOCK)
+        if not bits_equal(deq.cpu(), torch.from_numpy(
+                compression.dequantize_int8_batch(q_np, s_np, k, BLOCK))):
+            raise AssertionError(f"dequantize 1x{k}: kernel != numpy")
+        _record_dequantize(record, f"client_{tier}", q, s, k, BLOCK, deq,
+                           parent)
 
-    check_topk(dev, record)
-    check_checksum(dev, record)
-    check_lm_kernels(dev, record, rows)
-    check_head_widths(dev, rows)
-    check_lm_fl_kernels(dev, record)
-    return rows
+
+# Dequantize's edge cases (rows, n, block): rows >= 2 at n mod 4 = 1, 2, 3
+# and 0 (rows after the first start off the 16-byte grid), the top-k tier
+# lengths under int8(1024), blocks that are no multiple of 16 or 4, rows
+# past a grid's 65,535, and codes whose base is off the 16-byte grid.
+DEQUANT_EDGES = [(3, 25_449, 1024), (3, SLICE_N, 1024), (3, 25_451, 1024),
+                 (3, 25_452, 1024), (4, 10_180, 1024), (4, 3817, 1024),
+                 (4, 1018, 1024), (5, 3001, 1000), (5, 2999, 7),
+                 (6, 4097, 512), (2, 3, 1), (65_537, 9, 7)]
+
+
+def check_dequantize_edges(dev) -> None:
+    """Dequantize at DEQUANT_EDGES, from host-made codes: bitwise against
+    the plain version and numpy's dequantize_int8_batch; and (5, 2999, 7)
+    again with the codes one row into a larger buffer (off the grid)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import compression
+    from repro_torch.kernels.quantize import ops as quant_ops
+    from repro_torch.kernels.quantize import ref as quant_ref
+
+    rng = np.random.default_rng(17)
+    cases = [(*c, False) for c in DEQUANT_EDGES] + [(5, 2999, 7, True)]
+    for rows, n, block, offset in cases:
+        x_np = rng.standard_normal((rows, n)).astype(np.float32)
+        q_np, s_np = compression.quantize_int8_batch(x_np, block)
+        q = torch.from_numpy(q_np).to(dev)
+        if offset:                     # one row of 3003 codes further in
+            buf = torch.zeros((rows + 1, q.shape[1]), dtype=torch.int8,
+                              device=dev)
+            buf[1:] = q
+            q = buf[1:]
+            if q.data_ptr() % 16 == 0:
+                raise AssertionError("dequantize edge: codes on the grid")
+        s = torch.from_numpy(s_np).to(dev)
+        out = quant_ops.dequantize(q, s, n, block)
+        want = torch.from_numpy(
+            compression.dequantize_int8_batch(q_np, s_np, n, block))
+        if not (bits_equal(out.cpu(), want) and bits_equal(
+                quant_ref.dequantize(q, s, n, block).cpu(), want)):
+            raise AssertionError(f"dequantize {(rows, n)} block {block}: "
+                                 f"kernel != plain != numpy")
+    say(f"  dequantize edges {DEQUANT_EDGES} and codes off the 16-byte "
+        f"grid: kernel == plain == numpy")
 
 
 def lm_fl_params() -> int:
@@ -484,7 +704,7 @@ def lm_fl_params() -> int:
     return n
 
 
-def check_lm_fl_kernels(dev, record) -> None:
+def check_lm_fl_kernels(dev, record, parent=None) -> None:
     """fedavg, quantize and dequantize at fl_train_lm --scale 100m's
     shapes: the server's mean of 3 clients' deltas (3, N) and one
     client's int8 encode and decode (1, N); bitwise against the plain
@@ -520,14 +740,12 @@ def check_lm_fl_kernels(dev, record) -> None:
     if not (bits_equal(q, q_ref) and bits_equal(sc, s_ref)
             and bits_equal(deq, deq_ref)):
         raise AssertionError(f"quantize/dequantize 1x{n}: kernel != plain")
-    del q_ref, s_ref, deq, deq_ref
+    del q_ref, s_ref, deq_ref
     record("quantize", "lm_fl", (1, n), 4 * n + nb * BLOCK + 4 * nb, 6 * n,
            lambda: quant_ops.quantize(x, BLOCK),
            lambda: quant_ref.quantize(x, BLOCK), None, 0.0)
-    record("dequantize", "lm_fl", (1, n), n + 4 * nb + 4 * n, n,
-           lambda: quant_ops.dequantize(q, sc, n, BLOCK),
-           lambda: quant_ref.dequantize(q, sc, n, BLOCK), None, 0.0)
-    del x, q, sc
+    _record_dequantize(record, "lm_fl", q, sc, n, BLOCK, deq, parent)
+    del x, q, sc, deq
     torch.cuda.empty_cache()
 
 
@@ -607,7 +825,7 @@ def _topk_inputs(dev, key, rows, n, k, seed):
     return x, idx.to(torch.int32).contiguous(), None, None
 
 
-def check_topk(dev, record) -> None:
+def check_topk(dev, record, parent=None) -> None:
     """Phase 2 for the top-k gather and scatter kernels."""
     import numpy as np
     import torch
@@ -654,7 +872,19 @@ def check_topk(dev, record) -> None:
                                      "path")
         idx64 = idx.long()
         buf = torch.empty_like(out)
-        err = torch.empty(1, dtype=torch.int32, device=dev)
+        scratch = topk_ops.scatter_scratch(rows, dev)
+        parent_fn = None
+        if parent is not None:
+            old = torch.empty_like(out)
+            err = torch.empty(1, dtype=torch.int32, device=dev)
+            parent.scatter(idx, vals, old, err)
+            torch.cuda.synchronize()
+            if not bits_equal(old, out):
+                raise AssertionError(f"topk_scatter {rows}x{k}->{n}: the "
+                                     f"parent's kernel disagrees")
+            parent_fn = lambda: parent.scatter(idx, vals, old, err)  # noqa
+        say(f"  topk_scatter {(rows, k, n)}: {topk_ops.scatter_tile(rows, n)}"
+            f" columns a CTA")
         # Reads idx and vals, writes the whole dense output.
         record("topk_scatter", key, (rows, k, n),
                4 * rows * n + 8 * rows * k, 0,
@@ -664,33 +894,98 @@ def check_topk(dev, record) -> None:
                    1, idx64, vals),
                float((out - plain).abs().max()),
                launch_fn=lambda: topk_ops._launch_scatter(
-                   idx, vals, buf, err))
+                   idx, vals, buf, scratch), parent_fn=parent_fn)
+
+
+def _scatter_holds(dev, label, idx_np, vals_np, n) -> None:
+    """The scatter kernel on host-made (idx, vals), bitwise against the
+    plain version and numpy's sequential assignment (last write wins)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.topk import ops as topk_ops
+    from repro_torch.kernels.topk import ref as topk_ref
+    rows, k = idx_np.shape
+    idx = torch.from_numpy(idx_np).to(dev)
+    vals = torch.from_numpy(vals_np).to(dev)
+    dense = np.zeros((rows, n), np.float32)
+    dense[np.repeat(np.arange(rows), k), idx_np.reshape(-1)] = \
+        vals_np.reshape(-1)
+    want = torch.from_numpy(dense)
+    got = topk_ops.topk_scatter(idx, vals, n).cpu()
+    if not (bits_equal(got, want)
+            and bits_equal(topk_ref.scatter(idx, vals, n).cpu(), want)):
+        raise AssertionError(f"topk_scatter {label}: kernel != plain != "
+                             f"numpy")
+
+
+def check_topk_edges(dev) -> None:
+    """The scatter's edge cases: duplicates, unordered rows spanning many
+    tiles beside increasing ones, every entry in one tile, K = 0, widths
+    off the 16-byte grid and off the tile, rows past a grid's 65,535 and
+    bad indices (which must raise)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.topk import ops as topk_ops
+
+    rng = np.random.default_rng(8)
+
+    def inc(k, lo, hi):                 # k sorted distinct in [lo, hi)
+        return np.sort(rng.choice(np.arange(lo, hi), k, replace=False))
+
+    def values(shape):
+        return rng.standard_normal(shape).astype(np.float32)
 
     # Duplicate indices resolve last-wins, like the reference's loop.
-    dup = torch.tensor([[3, 3, 7], [0, 5, 0]], dtype=torch.int32, device=dev)
-    dvals = torch.tensor([[1., 2., 3.], [4., 5., 6.]], device=dev)
-    want = torch.zeros((2, 10))
-    want[0, 3], want[0, 7], want[1, 0], want[1, 5] = 2., 3., 6., 5.
-    got = topk_ops.topk_scatter(dup, dvals, 10).cpu()
-    if not (bits_equal(got, want)
-            and bits_equal(topk_ref.scatter(dup, dvals, 10).cpu(), want)):
-        raise AssertionError(f"topk_scatter duplicates: got {got.tolist()}")
-    # Unordered rows with many duplicates over several column chunks, beside
-    # increasing rows in the same call, against numpy's sequential writes.
-    rng = np.random.default_rng(8)
-    mixed = rng.integers(0, 30_000, (6, 5000)).astype(np.int32)
-    for r in range(0, 6, 2):                         # strictly increasing
-        mixed[r] = np.sort(rng.choice(30_000, 5000, replace=False))
-    mvals = rng.standard_normal((6, 5000)).astype(np.float32)
-    dense = np.zeros((6, 30_000), np.float32)
-    dense[np.repeat(np.arange(6), 5000), mixed.reshape(-1)] = \
-        mvals.reshape(-1)
-    got = topk_ops.topk_scatter(torch.from_numpy(mixed).to(dev),
-                                torch.from_numpy(mvals).to(dev), 30_000)
-    if not bits_equal(got.cpu(), torch.from_numpy(dense)):
-        raise AssertionError("topk_scatter: unordered rows != numpy")
-    say("  topk_scatter with duplicate indices: last-wins, kernel == plain "
-        "== numpy")
+    _scatter_holds(dev, "duplicates", np.array([[3, 3, 7], [0, 5, 0]],
+                                               np.int32),
+                   np.array([[1., 2., 3.], [4., 5., 6.]], np.float32), 10)
+    # Eight rows of 5000 over 30,000 columns (30 tiles): increasing rows
+    # beside unordered rows with duplicates all over the row, a sorted row
+    # with one repeated index, a descending row, unordered duplicates over
+    # tiles 1-3 and inside tile 2.
+    n, t = 30_000, topk_ops.scatter_tile(8, 30_000)
+    repeat = inc(5000, 0, n)
+    repeat[2500] = repeat[2499]
+    mixed = np.stack([
+        inc(5000, 0, n), rng.integers(0, n, 5000), inc(5000, 0, n), repeat,
+        inc(5000, 0, n)[::-1], rng.integers(t, 4 * t, 5000),
+        inc(5000, 0, n), rng.integers(2 * t, 3 * t, 5000)]).astype(np.int32)
+    _scatter_holds(dev, "mixed rows", mixed, values(mixed.shape), n)
+    # Every entry of a row in one tile: the first, a middle and the last.
+    n = SLICE_N
+    t = topk_ops.scatter_tile(3, n)
+    last = (n - 1) // t * t
+    one = np.stack([inc(800, 0, t), inc(800, 5 * t, 6 * t),
+                    inc(800, last, n)]).astype(np.int32)
+    _scatter_holds(dev, "one tile", one, values(one.shape), n)
+    # K = 0 rows, and widths off the 16-byte grid and off the tile.
+    _scatter_holds(dev, "K = 0", np.zeros((4, 0), np.int32),
+                   np.zeros((4, 0), np.float32), n)
+    for rows, n, k in ((5, 25_451, 3817), (5, 10_181, 1527), (3, 3, 2),
+                       (2, 1, 1)):
+        ragged = np.stack([inc(k, 0, n) for _ in range(rows)]).astype(
+            np.int32)
+        _scatter_holds(dev, f"n={n}", ragged, values(ragged.shape), n)
+    # Rows past 65,535 (the grid's y limit), one of them unordered.
+    many = np.stack([inc(3, 0, 13) for _ in range(70_000)]).astype(np.int32)
+    many[-1] = [5, 2, 5]
+    _scatter_holds(dev, "70,000 rows", many, values(many.shape), 13)
+    # Bad indices set the flag, and the wrapper raises: rows short enough
+    # for each CTA to see all of them (1018), and longer ones (a ticket).
+    for bad_row, bad, k in ((2, SLICE_N, 1018), (0, -1, 3817),
+                            (3, 1 << 30, 10_180)):
+        idx_np = np.stack([inc(k, 0, SLICE_N) for _ in range(4)])
+        idx_np[bad_row, 500] = bad
+        try:
+            topk_ops.topk_scatter(torch.from_numpy(idx_np.astype(
+                np.int32)).to(dev), torch.from_numpy(values(idx_np.shape)).to(
+                dev), SLICE_N)
+        except IndexError:
+            continue
+        raise AssertionError(f"topk_scatter: index {bad} did not raise")
+    say("  topk_scatter edges (duplicates, unordered rows over 30 tiles, "
+        "one tile, K = 0, n = 25451 / 10181 / 3 / 1, 70,000 rows): kernel "
+        "== plain == numpy; bad indices raise")
 
 
 def uplink_body() -> bytes:
@@ -1853,11 +2148,37 @@ def _say_wgmma_resources() -> None:
                                  f"{mine}")
 
 
-def main() -> int:
+def _say_fl_resources() -> None:
+    """The top-k scatter's and dequantize's ptxas registers and spills, and
+    their shared memory a CTA: the scatter's tile is dynamic, (tile + 4)
+    floats, at its path and large shapes."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.topk import ops as topk_ops
+    tiles = {key: topk_ops.scatter_tile(rows, n) for key, (rows, n, _)
+             in TOPK_SHAPES["topk_scatter"].items()}
+    for fam, kernel, smem in (
+            ("topk", "scatter_kernel", "; ".join(
+                f"{key} dynamic smem {(t + 4) * 4} bytes a CTA ({t} columns)"
+                for key, t in tiles.items())),
+            ("quantize", "dequantize_kernel", "no dynamic smem")):
+        lines = _ptxas_lines((_build.BUILD_DIR / f"{fam}.log").read_text())
+        mine = [line for entry, line in lines if entry.startswith(kernel)]
+        say(f"  {kernel}: {'; '.join(mine)}; {smem}")
+
+
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
     import torch
 
     from repro_torch import kernels
     from repro_torch.kernels import _build
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a checkout from before the top-k scatter and "
+                         "dequantize redesign: phase 2 also times its two "
+                         "kernels beside these, in turns")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
@@ -1869,7 +2190,10 @@ def main() -> int:
     card = card_line()
     say(f"[1] card: {card}")
     t0 = time.perf_counter()
+    parent = ParentKernels(args.parent) if args.parent else None
     per = _build.build()
+    if parent is not None:
+        parent.load()
     say(f"  built {sorted(per)} in {time.perf_counter() - t0:.3f} s "
         f"(per source: {json.dumps({k: round(v, 3) for k, v in per.items()})})")
     for name in sorted(per):
@@ -1878,9 +2202,10 @@ def main() -> int:
             for entry, line in _ptxas_lines(log.read_text()):
                 say(f"  ptxas {name} {entry}: {line}")
     _say_wgmma_resources()
+    _say_fl_resources()
 
     say("[2] kernels against their plain versions")
-    rows = check_kernels()
+    rows = check_kernels(parent)
 
     say("[3] pinned replays (4 transports x 6 scenarios x 2 engines) with "
         "the fedavg kernel")

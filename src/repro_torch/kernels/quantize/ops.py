@@ -18,6 +18,7 @@ from repro_torch.kernels.quantize import ref
 
 _LIB = None
 _MAX_CTAS = (1 << 31) - 1     # quantize runs one CTA per (row, block)
+_MAX_DEQUANT_N = (1 << 31) - (1 << 24)  # dequantize's 32-bit columns
 
 
 def _lib():
@@ -97,6 +98,9 @@ def dequantize(q: torch.Tensor, scales: torch.Tensor, n: int, block: int
     _check_device(scales, "dequantize")
     if q.device.type == "cpu":
         return ref.dequantize(q, scales, n, block)
+    if nb * block >= 1 << 31 or n > _MAX_DEQUANT_N:
+        raise ValueError(f"dequantize rows of {nb * block} codes exceed the "
+                         f"kernel's 32-bit column indexing")
     out = torch.empty((rows, n), dtype=torch.float32, device=q.device)
     if rows == 0 or n == 0:
         return out

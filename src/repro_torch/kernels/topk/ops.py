@@ -22,6 +22,12 @@ from repro_torch.kernels.topk import ref
 
 _LIB = None
 _MAX_INDEX = (1 << 31) - 1      # indices travel as int32
+#: the scatter's column tiles: about one CTA an SM of the H100's 132
+#: (SCATTER_TARGET_CTAS), in whole multiples of SCATTER_MIN_TILE columns
+#: (a single short row still gets one CTA a 1024 columns), at most
+#: SCATTER_MAX_TILE (one CTA's shared tile: 64 KB)
+SCATTER_MIN_TILE, SCATTER_MAX_TILE = 1024, 16384
+SCATTER_TARGET_CTAS = 132
 
 
 def _lib():
@@ -35,7 +41,7 @@ def _lib():
         lib.topk_scatter_f32.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-            ctypes.c_void_p, ctypes.c_void_p]
+            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
         lib.topk_gather_f32.restype = ctypes.c_int
         lib.topk_scatter_f32.restype = ctypes.c_int
         _LIB = lib
@@ -79,14 +85,31 @@ def _launch_gather(x: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
     kernels.launch_counts["topk_gather"] += 1
 
 
+def scatter_tile(rows: int, n: int) -> int:
+    """Columns of a row that one scatter CTA owns: the multiple of
+    SCATTER_MIN_TILE that makes about SCATTER_TARGET_CTAS CTAs, at most
+    SCATTER_MAX_TILE, and no wider than the row (rounded up to 4)."""
+    want = -(-rows * n // SCATTER_TARGET_CTAS)
+    tile = -(-max(want, 1) // SCATTER_MIN_TILE) * SCATTER_MIN_TILE
+    return min(SCATTER_MAX_TILE, tile, -(-max(n, 1) // 4) * 4)
+
+
+def scatter_scratch(rows: int, device) -> torch.Tensor:
+    """The scatter's scratch, which the launch zeroes: the bad-index flag
+    (element 0), a pad, then one 64-bit ticket a row."""
+    return torch.empty(2 + 2 * rows, dtype=torch.int32, device=device)
+
+
 def _launch_scatter(idx: torch.Tensor, vals: torch.Tensor, out: torch.Tensor,
-                    err: torch.Tensor) -> None:
+                    scratch: torch.Tensor) -> None:
     """Launch the scatter kernel into ``out`` (N, n), like
-    :func:`_launch_gather`."""
+    :func:`_launch_gather`; ``scratch`` is :func:`scatter_scratch`'s, and
+    its element 0 is the bad-index flag."""
     rows, k = idx.shape
+    n = out.shape[1]
     rc = _lib().topk_scatter_f32(
-        idx.data_ptr(), vals.data_ptr(), out.data_ptr(), rows, k,
-        out.shape[1], err.data_ptr(),
+        idx.data_ptr(), vals.data_ptr(), out.data_ptr(), rows, k, n,
+        scatter_tile(rows, n), scratch.data_ptr(),
         torch.cuda.current_stream(idx.device).cuda_stream)
     _build.check(rc, "topk", "topk_scatter_f32")
     kernels.launch_counts["topk_scatter"] += 1
@@ -128,6 +151,9 @@ def topk_scatter(idx: torch.Tensor, vals: torch.Tensor, n: int
         raise ValueError(f"topk scatter width must be in [0, 2**31), "
                          f"got {n}")
     rows, k = idx.shape
+    if k > _MAX_INDEX:
+        raise ValueError(f"topk scatter keeps at most 2**31 - 1 entries a "
+                         f"row, got {k}")
     if _check_device((idx, vals), "topk scatter") == "cpu":
         if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= n):
             raise IndexError(f"topk scatter: an index lies outside "
@@ -140,7 +166,7 @@ def topk_scatter(idx: torch.Tensor, vals: torch.Tensor, n: int
         if k:
             raise IndexError("topk scatter: an index lies outside [0, 0)")
         return out
-    err = torch.empty(1, dtype=torch.int32, device=vals.device)
-    _launch_scatter(idx, vals, out, err)
-    _raise_if_flagged(err, "topk scatter", n)
+    scratch = scatter_scratch(rows, vals.device)
+    _launch_scatter(idx, vals, out, scratch)
+    _raise_if_flagged(scratch[:1], "topk scatter", n)
     return out

@@ -153,6 +153,53 @@ def test_dequantize_plain_matches_numpy_and_pallas_bitwise(rows, n, block):
         np.testing.assert_array_equal(_bits(out.numpy()), _bits(pallas))
 
 
+# Dequantize's edge shapes (rows, n, block): rows after the first off the
+# 16-byte grid (n % 4 = 1, 2, 3, 0), the top-k tier lengths under
+# int8(1024), and blocks that are no multiple of 16 or 4.
+DEQUANT_EDGES = [(3, 25_449, 1024), (3, 25_451, 1024), (3, 25_452, 1024),
+                 (4, 10_180, 1024), (4, 3817, 1024), (4, 1018, 1024),
+                 (5, 3001, 1000), (5, 2999, 7), (2, 3, 1)]
+
+
+@pytest.mark.parametrize("rows,n,block", DEQUANT_EDGES)
+def test_dequantize_plain_at_edge_shapes(rows, n, block):
+    """The plain version at the CUDA kernel's edge shapes, bitwise against
+    numpy and (block 1024) the Pallas kernel."""
+    q_np, s_np = quantize_int8_batch(_mat(rows, n), block)
+    out = quant_ops.dequantize(torch.from_numpy(q_np),
+                               torch.from_numpy(s_np), n, block)
+    host = dequantize_int8_batch(q_np, s_np, n, block)
+    np.testing.assert_array_equal(_bits(out.numpy()), _bits(host))
+    if block == pallas_quant.QBLOCK:
+        pallas = np.asarray(pallas_quant.dequantize_matrix(q_np, s_np, n))
+        np.testing.assert_array_equal(_bits(out.numpy()), _bits(pallas))
+
+
+@pytest.mark.parametrize("rows,n,block,offset",
+                         [(*e, False) for e in DEQUANT_EDGES]
+                         + [(5, 2999, 7, True), (65_537, 9, 7, False)])
+def test_dequantize_edges_on_the_card(rows, n, block, offset):
+    """The CUDA kernel at the edge shapes, rows past a grid's 65,535, and
+    codes whose base is off the 16-byte grid (a row of a larger buffer),
+    bitwise against the plain version and numpy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs these checks "
+                    "on the card")
+    q_np, s_np = quantize_int8_batch(_mat(rows, n), block)
+    dev = torch.device("cuda")
+    q = torch.from_numpy(q_np).to(dev)
+    if offset:
+        buf = torch.zeros((rows + 1, q.shape[1]), dtype=torch.int8,
+                          device=dev)
+        buf[1:] = q
+        q = buf[1:]
+        assert q.data_ptr() % 16
+    got = quant_ops.dequantize(q, torch.from_numpy(s_np).to(dev), n,
+                               block).cpu()
+    host = dequantize_int8_batch(q_np, s_np, n, block)
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(host))
+
+
 def test_quantize_rounds_half_to_even_and_pads_with_zeros():
     # 127 * x / absmax lands exactly on .5 for these values; rint (not
     # floor(x + 0.5)) sends them to the even neighbour.

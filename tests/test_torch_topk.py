@@ -8,8 +8,9 @@ exact: gather and scatter at three shapes, a scatter with duplicate
 indices (last wins, like the reference's sequential row loop and numpy
 fancy assignment), and the gather -> scatter round trip.  The wrappers
 refuse an index outside its row on the CPU as the kernels flag it on the
-card.  The CUDA kernels themselves run only on a card (skipped here;
-``chip_smoke.py`` holds them against these plain versions).
+card.  The scatter's tile plan (host-side) is checked here.  The CUDA
+kernels themselves run only on a card (the ``on_the_card`` cases skip
+here; ``chip_smoke.py`` holds them against these plain versions).
 """
 
 from __future__ import annotations
@@ -156,3 +157,103 @@ def test_cuda_kernels_match_plain_versions_bitwise():
         assert torch.equal(out, topk_ref.gather(x, idx))
         assert torch.equal(topk_ops.topk_scatter(idx, out, p),
                            topk_ref.scatter(idx, out, p))
+
+
+# The scatter's tile plan: (rows, n) -> columns a CTA, at the wire plane's
+# shapes (one client's row; the server's tier groups), a large one, rows
+# past a grid's 65,535, and rows narrower than one tile.
+TILE_PLANS = [((1, 25_450), 1024), ((18, 25_450), 4096), ((25, 25_450), 5120),
+              ((64, 1 << 20), 16_384), ((70_000, 13), 16), ((2, 1), 4),
+              ((8, 30_000), 2048)]
+
+
+@pytest.mark.parametrize("shape,tile", TILE_PLANS)
+def test_scatter_tile_plan(shape, tile):
+    rows, n = shape
+    got = topk_ops.scatter_tile(rows, n)
+    assert got == tile
+    assert got % 4 == 0 and 4 <= got <= topk_ops.SCATTER_MAX_TILE
+    assert got >= min(topk_ops.SCATTER_MIN_TILE, n)
+    scratch = topk_ops.scatter_scratch(rows, "cpu")
+    assert scratch.dtype == torch.int32 and scratch.numel() == 2 + 2 * rows
+
+
+def _dense(idx, vals, n):
+    rows, k = idx.shape
+    out = np.zeros((rows, n), np.float32)
+    out[np.repeat(np.arange(rows), k), idx.reshape(-1)] = vals.reshape(-1)
+    return out
+
+
+def _scatter_edge(name, rng):
+    """(idx, vals, n) of one of the scatter kernel's edge cases."""
+    def inc(k, lo, hi):
+        return np.sort(rng.choice(np.arange(lo, hi), k, replace=False))
+    if name == "mixed":           # 15 tiles; unordered rows, duplicates
+        n = 30_000
+        t = topk_ops.scatter_tile(6, n)
+        rep = inc(5000, 0, n)
+        rep[2500] = rep[2499]
+        idx = np.stack([inc(5000, 0, n), rng.integers(0, n, 5000), rep,
+                        inc(5000, 0, n)[::-1], rng.integers(t, 4 * t, 5000),
+                        rng.integers(2 * t, 3 * t, 5000)])
+    elif name == "short_mixed":   # K <= 1024: each CTA sees the whole row
+        n = 25_450
+        idx = np.stack([inc(1018, 0, n), rng.integers(0, n, 1018),
+                        rng.integers(0, 900, 1018)])
+    elif name == "one_tile":
+        n = 25_450
+        t = topk_ops.scatter_tile(3, n)
+        idx = np.stack([inc(800, 0, t), inc(800, 5 * t, 6 * t),
+                        inc(800, (n - 1) // t * t, n)])
+    elif name == "k0":
+        n, idx = 25_450, np.zeros((4, 0), np.int64)
+    elif name == "ragged":        # n % 4 = 3, rows off the 16-byte grid
+        n = 25_451
+        idx = np.stack([inc(3817, 0, n) for _ in range(5)])
+    elif name == "tiny":
+        n, idx = 3, np.stack([inc(2, 0, 3) for _ in range(3)])
+    elif name == "many_rows":     # past a grid's 65,535 rows
+        n = 13
+        idx = np.stack([inc(3, 0, n) for _ in range(70_000)])
+        idx[-1] = [5, 2, 5]
+    else:                         # large: two search rounds, a ticket a row
+        n = 1 << 20
+        idx = np.stack([inc(157_286, 0, n) for _ in range(2)])
+        idx[1, 1000:1010] = idx[1, 1000]
+    idx = idx.astype(np.int32)
+    return idx, rng.standard_normal(idx.shape).astype(np.float32), n
+
+
+@pytest.mark.parametrize("case", ["mixed", "short_mixed", "one_tile", "k0",
+                                  "ragged", "tiny", "many_rows", "large"])
+def test_scatter_edges_on_the_card(case):
+    """The scatter kernel at its edge cases, bitwise against the plain
+    version and numpy's sequential assignment (last write wins)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs these checks "
+                    "on the card")
+    idx, vals, n = _scatter_edge(case, np.random.default_rng(21))
+    dev = torch.device("cuda")
+    got = topk_ops.topk_scatter(_t(idx).to(dev), _t(vals).to(dev), n).cpu()
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  _dense(idx, vals, n).view(np.uint32))
+    assert torch.equal(got, topk_ref.scatter(_t(idx), _t(vals), n))
+
+
+@pytest.mark.parametrize("bad,k", [(25_450, 1018), (-1, 3817),
+                                   (1 << 30, 10_180)])
+def test_scatter_bad_index_raises_on_the_card(bad, k):
+    """A bad index in a row short enough for each CTA to see it whole
+    (1018), and in longer rows (resolved by the row's last CTA)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs these checks "
+                    "on the card")
+    rng = np.random.default_rng(22)
+    idx = np.stack([np.sort(rng.choice(25_450, k, replace=False))
+                    for _ in range(4)]).astype(np.int32)
+    idx[2, 500] = bad
+    dev = torch.device("cuda")
+    with pytest.raises(IndexError, match=r"\[0, 25450\)"):
+        topk_ops.topk_scatter(_t(idx).to(dev),
+                              torch.ones(idx.shape, device=dev), 25_450)
