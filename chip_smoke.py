@@ -22,7 +22,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
    unordered rows and duplicates over many tiles beside increasing ones,
    one tile, K = 0, widths off the 16-byte grid, 70,000 rows and bad
    indices (which must raise); n % 4 = 1, 2, 3, blocks of 1000, 7 and 1,
-   the top-k tier lengths, 65,537 rows and codes off the grid.
+   the top-k tier lengths, 65,537 rows and codes off the grid.  The top-k
+   gather's bound is also counted the way the card reads x: the distinct
+   32-byte sectors its indices touch (counted on the card), plus the
+   indices and the values written; both shares are printed.
 3. The 24 pinned orchestrator replays (6 scenarios x mudp, udp, tcp,
    mudp+fec) under both packet engines with the fedavg kernel: each must
    reproduce the reference's digest.
@@ -76,14 +79,36 @@ Phases, each printed on its own lines; any failure exits non-zero:
    card and on the CPU: identical round records, NLL within NLL_TOL; and
    one round of one local step on each, whose moves of the global model
    must agree within PARAM_TOL (a run with no-op local steps must not).
-10. A JSON line with every kernel's numbers, one with phases 8 and 9's,
+10. The MoE, VLM, encdec and hybrid families serving on the card
+   (FAMILY_PATHS): olmoe-1b-7b whole at full width (16 layers, d_model
+   2048, 64 experts top-8; B=2 x 2048), hymba-1.5b whole (B=2 x 2048,
+   past its 1024 window), whisper-tiny whole (1500 frames, B=2, a 64-token
+   prompt), qwen3-moe-235b-a22b and qwen2-vl-72b at full width cut to 4
+   layers (B=1 x 2048; qwen2-vl with its 64-token vision prefix and M-RoPE
+   positions whose height and width channels differ from the temporal
+   one); seeded bf16 parameters, 16 greedy steps each, the memory freed
+   between them.  Each prints its flash attention launches a prefill
+   (16 / 32 / 12 / 4 / 4, failing otherwise), prefill wall, decode ms a
+   step, peak memory, a profile of the prefill and of two decode steps,
+   holds (a)-(c) as phase 6's, and (d) each bf16 attention call of the
+   plain prefill, the kernel no further from the plain version's float32
+   twin than BF16_ERROR_RATIO times the plain one.  For the MoE models
+   the K/V hold is printed, not held: bf16 rounding flips some tokens'
+   top-k experts between two prefills (the share is printed), and those
+   tokens' later K/V move with them.  hymba-1.5b also runs on a float32
+   copy (f32_twin): the f32 holds against LM_F32_REL_L2, and its bf16
+   logits against the float32 model's.  Then ``serve --smoke --device
+   cuda`` for one configuration of each family, the four at once.
+11. A JSON line with every kernel's numbers, one with phases 8 and 9's,
    the card line again, and the result line ``{"ok": true, "device":
    {...}}`` last.
 
 Phase 2 also holds the flash attention and mLSTM kernels against their
 plain versions at the serving shapes and at a 1500-token prompt, in bf16
-and f32, and times the serving shapes beside the bf16 tensor-core bound
-(and, for attention, ``scaled_dot_product_attention``), with achieved
+and f32 (flash attention also at each layer shape of phase 10, with
+SDPA's device time beside the kernel's), and times the serving shapes
+beside the bf16 tensor-core bound (and, for attention,
+``scaled_dot_product_attention``), with achieved
 TFLOP/s and the share of the bound beside each time.  The tensor-core
 flash attention kernel (bf16 at hd 64, 128, 256) is held at hd 64 and
 128 too (1500 tokens, window 1000, GQA).  The tensor-core mLSTM kernel
@@ -99,9 +124,10 @@ tensor-core kernel's ptxas registers and spills and its shared memory a
 CTA, and fails on a spill.
 
 Launch counts are zeroed just before each path (phases 4, 5, the
-checksum pass of 5, the serving run of 6 and of 7, the training steps of
-8 and the rounds of 9) and read just after it, so the comparison launches of phase 2, of the ``encode_batch``
-check and of the serving holds do not count.
+checksum pass of 5, the serving run of 6, of 7 and of each configuration
+of 10, the training steps of 8 and the rounds of 9) and read just after
+it, so the comparison launches of phase 2, of the ``encode_batch`` check
+and of the serving holds do not count.
 
 ``--parent DIR`` builds the top-k scatter and dequantize of a checkout from before
 their redesign and times each just before and just after this one at
@@ -250,6 +276,22 @@ PARAM_TOL = 0.3
 # output's error scales with its row's signed sum of rounded terms, not
 # with the output itself; its band is band * (1 + max |plain| over the
 # row's dh outputs).
+# Flash attention at the layer shapes of phase 10's serving paths,
+# (B, S, T, H, KV, hd, causal, window): olmoe MHA, qwen3-moe GQA 16,
+# qwen2-vl GQA 8 (hd 128, causal, 2048 tokens); hymba's local and global
+# layers (25 query heads over 5 KV heads, hd 64); whisper's encoder
+# (bidirectional over 1500 frames), decoder self-attention and
+# cross-attention (64 queries over 1500 frames, no mask).
+FAMILY_ATTENTION = {
+    "olmoe": (2, 2048, 2048, 16, 16, 128, True, 0),
+    "qwen3_moe": (1, 2048, 2048, 64, 4, 128, True, 0),
+    "qwen2_vl": (1, 2048, 2048, 64, 8, 128, True, 0),
+    "hymba_local": (2, 2048, 2048, 25, 5, 64, True, 1024),
+    "hymba_global": (2, 2048, 2048, 25, 5, 64, True, 0),
+    "whisper_encoder": (2, 1500, 1500, 6, 6, 64, False, 0),
+    "whisper_self": (2, 64, 64, 6, 6, 64, True, 0),
+    "whisper_cross": (2, 64, 1500, 6, 6, 64, False, 0),
+}
 LM_BANDS = {"float32": {"flash_attention": 2e-5, "mlstm": 5e-4},
             "bfloat16": {"flash_attention": 3e-2, "mlstm": 3e-2}}
 # Serving holds (bf16 through 24-48 layers): relative L2 error of the
@@ -257,6 +299,37 @@ LM_BANDS = {"float32": {"flash_attention": 2e-5, "mlstm": 5e-4},
 # plus one decode step vs the full prefill), and of each layer's K/V cache
 # or each recurrent state (kernel vs plain prefill).
 LM_LOGIT_REL_L2 = 5e-2
+# Phase 10: (batch, prompt) per configuration; ``layers``: the depth cut
+# (0: whole), the width is the published one; the flash attention
+# launches per prefill (one per attention layer; whisper: 4 encoder, 4
+# decoder self- and 4 cross-attention layers).  Holds (a)-(c) as phase 6,
+# and (d) below; ``f32_twin`` as LM_PATHS' (hymba-1.5b: rounding to bf16
+# through its 32 parallel attention + SSM blocks moves the plain model's
+# K/V by more than LM_STATE_REL_L2 between two bf16 prefills).
+FAMILY_PATHS = {
+    "olmoe-1b-7b": {"batch": 2, "prompt": 2048, "layers": 0,
+                    "per_prefill": 16, "f32_twin": False},
+    "hymba-1.5b": {"batch": 2, "prompt": 2048, "layers": 0,
+                   "per_prefill": 32, "f32_twin": True},
+    "whisper-tiny": {"batch": 2, "prompt": 64, "layers": 0,
+                     "per_prefill": 12, "f32_twin": False},
+    "qwen3-moe-235b-a22b": {"batch": 1, "prompt": 2048, "layers": 4,
+                            "per_prefill": 4, "f32_twin": False},
+    "qwen2-vl-72b": {"batch": 1, "prompt": 2048, "layers": 4,
+                     "per_prefill": 4, "f32_twin": False},
+}
+# The bf16 holds against a float32 twin: the kernel route's relative L2
+# distance from the float32 result may be at most BF16_ERROR_RATIO times
+# the plain route's own distance from it.  Both round to bf16 at the same
+# places, so the two errors are of one size.  Hold (d) applies it at each
+# bf16 attention call of a plain prefill (the plain version's float32
+# twin on the same bf16 inputs); with ``f32_twin`` it also holds the whole
+# model's bf16 logits, of the prefill and of prefill(P-1) + one decode
+# step, against the float32 model's plain prefill.
+BF16_ERROR_RATIO = 2.0
+# ``serve --smoke --device cuda``: one configuration of each family
+FAMILY_SERVE_SMOKE = ("olmoe-1b-7b", "qwen2-vl-72b", "whisper-tiny",
+                      "hymba-1.5b")
 LM_STATE_REL_L2 = 3e-2
 # The xLSTM at random init is too sensitive for bf16 holds of that size:
 # rounding its activations to bf16 at all moves the last-position logits
@@ -525,10 +598,11 @@ def check_kernels(parent: ParentKernels | None = None):
 
     check_quantize(dev, record, parent)
     check_dequantize_edges(dev)
-    check_topk(dev, record, parent)
+    check_topk(dev, record, rows, parent)
     check_topk_edges(dev)
     check_checksum(dev, record)
     check_lm_kernels(dev, record, rows)
+    check_family_attention(dev, rows)
     check_head_widths(dev, rows)
     check_lm_fl_kernels(dev, record, parent)
     return rows
@@ -825,8 +899,36 @@ def _topk_inputs(dev, key, rows, n, k, seed):
     return x, idx.to(torch.int32).contiguous(), None, None
 
 
-def check_topk(dev, record, parent=None) -> None:
-    """Phase 2 for the top-k gather and scatter kernels."""
+def _gather_sector_bound(rec: dict, idx, n: int) -> None:
+    """The gather's bound counted the way the card reads: whole 32-byte
+    sectors of x.  The distinct sectors the indices touch, counted exactly
+    from ``idx`` on the card (row-major x, rows of n floats from a base
+    the allocator aligns to 512 bytes; idx increases along each row, so a
+    new sector starts wherever the sector number changes), times 32, plus
+    the indices read and the values written (8 bytes a kept element).
+    Prints the kernel's device time as a share of both bounds; into
+    ``rec``."""
+    import torch
+    rows, k = idx.shape
+    first = torch.arange(rows, device=idx.device, dtype=torch.int64) * n
+    sector = ((first[:, None] + idx.long()) // 8).reshape(-1)
+    sectors = 1 + int((sector[1:] != sector[:-1]).sum())
+    nbytes = 32 * sectors + 8 * rows * k
+    bnd, _ = bound_ms(nbytes, 0)
+    t = rec["device"]["ms"]
+    rec.update(sector_bytes=nbytes, sectors=sectors,
+               sector_bound_ms=bnd, sector_share=bnd / t,
+               element_share=rec["bound_ms"] / t)
+    say(f"    sectors of x the indices touch: {sectors} of "
+        f"{-(-rows * n // 8)} ({sectors / -(-rows * n // 8):.4f}); sector "
+        f"bound {nbytes} bytes, {bnd:.6f} ms: the kernel's device time "
+        f"{t:.6f} ms reads {bnd / t:.4f} of it ({rec['bound_ms'] / t:.4f} "
+        f"of the 12-byte-a-kept-element bound)")
+
+
+def check_topk(dev, record, records, parent=None) -> None:
+    """Phase 2 for the top-k gather and scatter kernels (``records``: what
+    ``record`` fills)."""
     import numpy as np
     import torch
     from repro_torch.kernels.topk import ops as topk_ops
@@ -853,6 +955,7 @@ def check_topk(dev, record, parent=None) -> None:
                lambda: torch.gather(x, 1, idx64),
                float((out - plain).abs().max()),
                launch_fn=lambda: topk_ops._launch_gather(x, idx, buf, err))
+        _gather_sector_bound(records["topk_gather"][key], idx, n)
 
     for key, (rows, n, k) in TOPK_SHAPES["topk_scatter"].items():
         x, idx, x_np, idx_np = _topk_inputs(dev, key, rows, n, k, 5)
@@ -1274,6 +1377,77 @@ def check_lm_kernels(dev, record, rows) -> None:
         rows["mlstm"][f"edge_{S}_bfloat16"] = {
             "shape": [B, S, nh, dh], "max_abs_err": max(errs.values())}
         del q, k, v, ig, fg, q_off, plain
+    torch.cuda.empty_cache()
+
+
+def check_family_attention(dev, rows) -> None:
+    """Phase 2 for flash attention at the layer shapes of phase 10's
+    families (FAMILY_ATTENTION), in bf16 (the tensor-core kernel) and f32
+    (the CUDA-core one) against the plain version; bf16 timed per call and
+    on the device beside its bound and SDPA's device time on the same
+    inputs (the yardstick: the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    for key, (B, S, T, H, KV, hd, causal, window) in FAMILY_ATTENTION.items():
+        q = torch.randn((B, S, H, hd), generator=gen, device=dev)
+        k, v = (torch.randn((B, T, KV, hd), generator=gen, device=dev)
+                for _ in range(2))
+        flops = 4 * hd * B * H * _kept_pairs(S, T, causal, window)
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).removeprefix("torch.")
+            qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+
+            def kernel():
+                return flash_ops.flash_attention(qd, kd, vd, causal=causal,
+                                                 window=window)
+            out = kernel()
+            plain = flash_ref.flash_attention(qd, kd, vd, causal=causal,
+                                              window=window)
+            torch.cuda.synchronize()
+            band = LM_BANDS[dname]["flash_attention"]
+            ok, err = _band_check(out, plain, band)
+            say(f"  flash_attention {key} {dname} (B, S, T, H, KV, hd) "
+                f"{(B, S, T, H, KV, hd)} causal {causal} window {window}: "
+                f"max_abs_err {err} (band {band})")
+            if not ok:
+                raise AssertionError(f"flash_attention {key} {dname}: "
+                                     f"kernel outside the band, max |err| "
+                                     f"{err}")
+            nbytes = qd.element_size() * (2 * B * S * H * hd
+                                          + 2 * B * T * KV * hd)
+            peak = (PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                    else PEAK_F32_FLOPS)
+            bnd, by = bound_ms(nbytes, flops, peak)
+            rec = {"shape": [B, S, T, H, KV, hd, int(causal), window],
+                   "ms": time_ms(kernel), "bound_ms": bnd, "bound_by": by,
+                   "bytes": nbytes, "flops": flops, "max_abs_err": err}
+            if dtype == torch.bfloat16:
+                qt, kt, vt = (t.transpose(1, 2) for t in (qd, kd, vd))
+                mask = None
+                if window:
+                    pos = torch.arange(S, device=dev)
+                    mask = ((pos[None] <= pos[:, None])
+                            & (pos[:, None] - pos[None] < window))
+                rec["device_ms"] = device_ms(kernel)
+                rec["library_ms"] = device_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask,
+                        is_causal=causal and mask is None, enable_gqa=True))
+                say(f"    per call {rec['ms']:.6f} ms; device "
+                    f"{rec['device_ms']:.6f} ms, "
+                    f"{flops / rec['device_ms'] / 1e9:.1f} TFLOP/s "
+                    f"({bnd / rec['device_ms']:.4f} of the bound {bnd:.6f} "
+                    f"ms, {by}); SDPA device {rec['library_ms']:.6f} ms")
+            else:
+                say(f"    per call {rec['ms']:.6f} ms, bound {bnd:.6f} ms "
+                    f"({by})")
+            rows.setdefault("flash_attention", {})[f"{key}_{dname}"] = rec
+            del qd, kd, vd, out, plain
+        del q, k, v
     torch.cuda.empty_cache()
 
 
@@ -1743,23 +1917,43 @@ def run_lm_path(arch: str) -> tuple[dict, dict]:
                     "n_params": n_params}
 
 
-def _run_module(tag: str, args: list[str], timeout: int = 300) -> list[str]:
-    """``python -m <args>`` from the checkout on the card; its stdout lines
-    (echoed with ``tag``); fails unless it exits 0."""
-    cmd = [sys.executable, "-m", *args]
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+def _module_env() -> dict:
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (os.path.join(HERE, "src"), os.environ.get("PYTHONPATH"))
         if p))
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
-                          text=True, timeout=timeout)
-    for line in proc.stdout.splitlines():
+
+
+def _start_module(args: list[str]):
+    """``python -m <args>`` started from the checkout: (process, start)."""
+    return (subprocess.Popen([sys.executable, "-m", *args], cwd=HERE,
+                             env=_module_env(), stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True),
+            time.perf_counter())
+
+
+def _finish_module(tag: str, proc, t0: float,
+                   timeout: int = 300) -> list[str]:
+    """Wait for a started module; its stdout lines (echoed with ``tag``);
+    fails unless it exits 0 (and kills it past ``timeout``)."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    for line in out.splitlines():
         say(f"  {tag}: {line}")
     if proc.returncode != 0:
         raise AssertionError(f"{tag} exited {proc.returncode}:\n"
-                             f"{proc.stderr[-4000:]}")
+                             f"{err[-4000:]}")
     say(f"  {tag} exited 0 in {time.perf_counter() - t0:.3f} s")
-    return proc.stdout.splitlines()
+    return out.splitlines()
+
+
+def _run_module(tag: str, args: list[str], timeout: int = 300) -> list[str]:
+    """``python -m <args>`` from the checkout on the card; its stdout lines
+    (echoed with ``tag``); fails unless it exits 0."""
+    return _finish_module(tag, *_start_module(args), timeout=timeout)
 
 
 def run_serve_cli() -> None:
@@ -1773,6 +1967,322 @@ def run_serve_cli() -> None:
         _run_module(f"serve --smoke {arch}",
                     ["repro_torch.launch.serve", "--arch", arch, "--smoke",
                      "--device", "cuda"])
+
+
+# --------------------------------------------------------------------------
+# Phase 10: the MoE, VLM, encdec and hybrid families at full width
+# --------------------------------------------------------------------------
+def _family_batch(cfg, B: int, P: int, gen, dev) -> dict:
+    """A seeded serving batch on the card: tokens; for the VLM a vision
+    prefix of ``vision_tokens`` embeddings at the embedding's scale and
+    M-RoPE positions (the temporal channel ``arange(P)``, the height and
+    width channels walking an 8-wide patch grid over the prefix, the
+    temporal position after it); for encdec ``encoder_seq`` frames."""
+    import torch
+    dt = getattr(torch, cfg.dtype)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, P),
+                                     generator=gen, device=dev)}
+    if cfg.mrope:
+        V = cfg.vision_tokens
+        t = torch.arange(P, dtype=torch.int32, device=dev)
+        pos = t.expand(3, B, P).clone()
+        grid = torch.arange(V, dtype=torch.int32, device=dev)
+        pos[1, :, :V] = grid // 8
+        pos[2, :, :V] = grid % 8
+        batch["positions"] = pos
+        batch["vision_embeds"] = (torch.randn(
+            (B, V, cfg.d_model), generator=gen, device=dev)
+            * cfg.d_model ** -0.5).to(dt)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((B, cfg.encoder_seq, cfg.d_model),
+                                      generator=gen, device=dev).to(dt)
+    return batch
+
+
+def _decode_positions(cfg, B: int, pos: int, dev):
+    """M-RoPE positions of one decode step at ``pos`` (all three channels),
+    None for the other families."""
+    import torch
+    if not cfg.mrope:
+        return None
+    return torch.full((3, B, 1), pos, dtype=torch.int32, device=dev)
+
+
+def _family_state_errors(cache, plain) -> dict:
+    """Relative L2 error of each layer's slice of every cache tensor (K, V,
+    cross K / V, SSM state, conv tail), worst layer per key."""
+    import torch
+    return {key: max(_rel_l2(val[i], plain[key][i])
+                     for i in range(val.shape[0]))
+            for key, val in cache.items() if torch.is_tensor(val)}
+
+
+def _spy_prefill(cfg, params, batch, attn_impl: str):
+    """One prefill by ``attn_impl`` that also records, at each bf16
+    attention call of the plain route, the relative L2 distances between
+    the kernel's output on the same inputs, the plain one and the plain
+    version's float32 twin (the layer hold (d)), and each MoE layer's
+    top-k experts of every token.  Returns (logits, cache, [(kernel vs
+    plain, kernel vs f32, plain vs f32)], [expert sets])."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+
+    plain_fn, router_fn = flash_ref.flash_attention, T._router
+    layers, experts = [], []
+
+    def attention(q, k, v, *, causal=True, window=0, scale=None):
+        out = plain_fn(q, k, v, causal=causal, window=window)
+        if q.dtype != torch.float32:
+            exact = plain_fn(q.float(), k.float(), v.float(), causal=causal,
+                             window=window)
+            kernel = flash_ops.flash_attention(q, k, v, causal=causal,
+                                               window=window)
+            layers.append((_rel_l2(kernel, out), _rel_l2(kernel, exact),
+                           _rel_l2(out, exact)))
+        return out
+
+    def router(x, w, K):
+        top_w, top_i = router_fn(x, w, K)
+        experts.append(torch.sort(top_i, dim=-1).values.reshape(-1, K))
+        return top_w, top_i
+    flash_ref.flash_attention, T._router = attention, router
+    try:
+        with torch.no_grad():
+            logits, cache = M.make_prefill_step(cfg, attn_impl=attn_impl)(
+                params, batch)
+    finally:
+        flash_ref.flash_attention, T._router = plain_fn, router_fn
+    return logits, cache, layers, experts
+
+
+def _family_holds(cfg, params, batch, logits, prefill_cache) -> dict:
+    """Holds (a)-(c) of one prefill, as :func:`_lm_holds`, on a batch with
+    the family's extra inputs: (a) the plain prefill, (b) a prefill of the
+    first P-1 tokens (and positions) plus one decode step of the last,
+    (c) top-1 agreement of both; and (d) each bf16 attention call of the
+    plain prefill, fed the plain route's input, where the kernel's output
+    must lie no further than BF16_ERROR_RATIO times as far from the float32
+    twin as the plain one does (both round the same inputs to bf16 at
+    the same places).  For MoE, the share
+    of (token, layer) pairs whose top-k expert set differs between the
+    kernel's prefill and the plain one (routing flips)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+
+    P = batch["tokens"].shape[1]
+    short = dict(batch, tokens=batch["tokens"][:, :-1])
+    last_pos = None
+    if "positions" in batch:
+        short["positions"] = batch["positions"][..., :-1]
+        last_pos = batch["positions"][..., -1:]
+    lg_plain, cache_plain, layers, experts = _spy_prefill(
+        cfg, params, batch, "plain")
+    states = _family_state_errors(prefill_cache, cache_plain)
+    del cache_plain
+    flips = None
+    if cfg.num_experts:
+        *_, kernel_experts = _spy_prefill(cfg, params, batch, "kernel")
+        flips = float(torch.cat([(a != b).any(-1) for a, b in zip(
+            experts, kernel_experts)]).float().mean())
+    with torch.no_grad():
+        _, cache_b = M.make_prefill_step(cfg)(params, short)
+        lg_b, _ = M.make_decode_step(cfg)(params, T.grow_cache(cache_b, P),
+                                          batch["tokens"][:, -1:], last_pos)
+        del cache_b
+    top_a, rows_a = _top1(logits, lg_plain)
+    top_b, rows_b = _top1(lg_b, logits)
+    return {"rel_l2_a": _rel_l2(logits, lg_plain), "states_a": states,
+            "rel_l2_b": _rel_l2(lg_b, logits), "top1_a": top_a,
+            "rows_a": rows_a, "top1_b": top_b, "rows_b": rows_b,
+            "layers_d": layers, "routing_flips": flips,
+            "plain_logits": lg_plain, "decode_logits": lg_b}
+
+
+def _say_twin_hold(holds: dict, logits) -> list:
+    """The bf16 model against its float32 twin: the kernel prefill's
+    logits and prefill(P-1) + one decode step's, each no further from the
+    float32 plain prefill's than BF16_ERROR_RATIO times the bf16 plain
+    prefill's own distance; return the failures."""
+    truth = holds["f32"]["plain_logits"]
+    own = _rel_l2(holds["bf16"]["plain_logits"], truth)
+    errs = {"kernel prefill": _rel_l2(logits, truth),
+            "prefill(P-1) + decode": _rel_l2(holds["bf16"]["decode_logits"],
+                                             truth)}
+    holds["bf16"]["twin"] = dict(errs, plain=own)
+    say(f"  bf16 against the f32 model's plain prefill, logits rel L2: "
+        f"plain bf16 {own:.3e} (the model's own bf16 error); "
+        + "; ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (hold {BF16_ERROR_RATIO} x {own:.3e})")
+    return [f"bf16 {k} vs the f32 model: {v} > {BF16_ERROR_RATIO} x {own}"
+            for k, v in errs.items() if v > BF16_ERROR_RATIO * own]
+
+
+def _say_layer_hold(h: dict) -> list:
+    """Print hold (d) and the MoE's routing flips; return the failures."""
+    layers = h["layers_d"]
+    say(f"  bf16 (d) layer by layer ({len(layers)} attention calls of the "
+        f"plain prefill): kernel vs f32 rel L2 "
+        f"{min(r[1] for r in layers):.3e}-{max(r[1] for r in layers):.3e}, "
+        f"plain vs f32 {min(r[2] for r in layers):.3e}-"
+        f"{max(r[2] for r in layers):.3e} (hold: kernel <= "
+        f"{BF16_ERROR_RATIO} x plain, worst ratio {max(r[1] / r[2] for r in layers):.3f}); "
+        f"kernel vs plain {min(r[0] for r in layers):.3e}-"
+        f"{max(r[0] for r in layers):.3e}"
+        + ("" if h["routing_flips"] is None else
+           f"; routing flips (kernel vs plain prefill): "
+           f"{h['routing_flips']:.4f} of (token, layer) pairs"))
+    return [f"bf16 (d) attention call {i}: kernel vs f32 {k} > "
+            f"{BF16_ERROR_RATIO} x plain vs f32 {e}"
+            for i, (_, k, e) in enumerate(layers) if k > BF16_ERROR_RATIO * e]
+
+
+def run_family_path(arch: str) -> tuple[dict, dict]:
+    """Serve ``arch`` on the card (FAMILY_PATHS: whole, or at full width
+    cut to ``layers``): seeded bf16 parameters, one prefill through
+    ``make_prefill_step`` (flash attention), GEN_STEPS greedy decode steps
+    from its cache grown to P + GEN_STEPS + 2; launch counts zeroed just
+    before the prefill and read after the decode steps.  Then the profile
+    of a prefill and two decode steps, and holds (a)-(d) (with
+    ``f32_twin``, on a float32 copy too).  Frees the model's memory
+    before it returns the counts and the numbers."""
+    import dataclasses
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+
+    spec = FAMILY_PATHS[arch]
+    cfg = get_config(arch)
+    if spec["layers"]:
+        cfg = dataclasses.replace(cfg, num_layers=spec["layers"])
+    dev = torch.device("cuda")
+    B, P = spec["batch"], spec["prompt"]
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = M.init(cfg, gen, dev)
+    batch = _family_batch(cfg, B, P, gen, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    say(f"  {arch}: {cfg.num_layers} layers (published "
+        f"{get_config(arch).num_layers}), d_model {cfg.d_model}, "
+        f"{cfg.num_heads} / {cfg.num_kv_heads} heads of "
+        f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}, {n_params} "
+        f"parameters in {cfg.dtype} ({n_params * 2 / 1e9:.3f} GB), inputs "
+        f"{json.dumps({k: list(v.shape) for k, v in batch.items()})}, init "
+        f"{time.perf_counter() - t0:.3f} s")
+    prefill = M.make_prefill_step(cfg)
+    decode = M.make_decode_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, batch)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        prefill_cache = cache            # decode writes only into copies
+        cache = T.grow_cache(cache, P + GEN_STEPS + 2)   # + 2 profiled
+        tok = logits.argmax(-1, keepdim=True)
+        toks = [tok]
+        for i in range(GEN_STEPS):
+            t0 = time.perf_counter()
+            step_logits, cache = decode(
+                params, cache, tok, _decode_positions(cfg, B, P + i, dev))
+            tok = step_logits.argmax(-1, keepdim=True)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+            toks.append(tok)
+        counts = dict(kernels.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tokens = torch.cat(toks, dim=1).cpu()
+    say(f"  prefill B={B} P={P}: {t_prefill:.6f} s "
+        f"({B * P / t_prefill:.1f} tok/s); {GEN_STEPS} greedy steps: "
+        f"{sum(steps):.6f} s (first {steps[0] * 1e3:.3f} ms, median "
+        f"{statistics.median(steps) * 1e3:.3f} ms/step); peak memory "
+        f"{peak_gb:.3f} GB")
+    say(f"  flash attention launches per prefill: "
+        f"{counts['flash_attention']} (want {spec['per_prefill']}); all "
+        f"launch counts: {json.dumps(counts)}")
+    for b in range(B):
+        say(f"  seq{b}: {tokens[b].tolist()}")
+    if counts["flash_attention"] != spec["per_prefill"]:
+        raise AssertionError(f"{arch}: {counts['flash_attention']} flash "
+                             f"attention launches, want "
+                             f"{spec['per_prefill']} per prefill")
+    if not (torch.isfinite(logits).all()
+            and torch.isfinite(step_logits).all()):
+        raise AssertionError(f"{arch}: non-finite logits")
+    if logits.shape != (B, cfg.padded_vocab):
+        raise AssertionError(f"{arch}: logits {tuple(logits.shape)}")
+    with torch.no_grad():
+        pos = _decode_positions(cfg, B, P + GEN_STEPS, dev)
+        prof = {"prefill": _device_profile(
+                    "prefill", lambda: prefill(params, batch), "flash"),
+                "decode": _device_profile(
+                    "2 decode steps", lambda: [decode(params, cache, tok, pos)
+                                               for _ in range(2)], "flash")}
+    del cache
+    holds = {"bf16": _family_holds(cfg, params, batch, logits,
+                                   prefill_cache)}
+    del prefill_cache
+    if spec["f32_twin"]:
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        params32 = _cast_tree(params, torch.float32)
+        batch32 = {k: v.float() if v.is_floating_point() else v
+                   for k, v in batch.items()}
+        with torch.no_grad():
+            lg32, cache32 = M.make_prefill_step(cfg32)(params32, batch32)
+        holds["f32"] = _family_holds(cfg32, params32, batch32, lg32, cache32)
+        del params32, cache32, batch32
+        failures = (_say_holds("f32", holds["f32"], LM_F32_REL_L2,
+                               LM_F32_REL_L2)
+                    + _say_holds("bf16", holds["bf16"], float("inf"),
+                                 float("inf"))
+                    + _say_twin_hold(holds, logits))
+    else:
+        # MoE: bf16 rounding flips some tokens' top-k experts between the
+        # two prefills, and a flipped token's later K/V move with it, so
+        # the K/V hold is printed and the layer hold (d) stands in for it.
+        failures = _say_holds("bf16", holds["bf16"], LM_LOGIT_REL_L2,
+                              float("inf") if cfg.num_experts
+                              else LM_STATE_REL_L2)
+    failures += _say_layer_hold(holds["bf16"])
+    for key in holds:
+        holds[key].pop("plain_logits")
+        holds[key].pop("decode_logits")
+    del params, batch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"{arch}: " + "; ".join(failures))
+    return counts, {"layers": cfg.num_layers, "batch": B, "prompt": P,
+                    "prefill_s": t_prefill, "decode_s": sum(steps),
+                    "decode_step_first_s": steps[0],
+                    "decode_step_median_s": statistics.median(steps),
+                    "peak_gb": peak_gb, "profile": prof, "holds": holds,
+                    "n_params": n_params}
+
+
+def _leaves(tree: dict) -> list:
+    return [leaf for v in tree.values()
+            for leaf in (_leaves(v) if isinstance(v, dict) else [v])]
+
+
+def run_family_serve_cli() -> None:
+    """``serve --smoke --device cuda`` for one configuration of each of
+    phase 10's families, the four subprocesses at once; each must exit
+    0."""
+    procs = {arch: _start_module(["repro_torch.launch.serve", "--arch", arch,
+                                  "--smoke", "--device", "cuda"])
+             for arch in FAMILY_SERVE_SMOKE}
+    for arch, (proc, t0) in procs.items():
+        _finish_module(f"serve --smoke {arch}", proc, t0)
 
 
 # --------------------------------------------------------------------------
@@ -2262,6 +2772,14 @@ def main(argv: list[str] | None = None) -> int:
     counts_lmfl, by_shape_lmfl, lmfl = run_lm_fl_path()
     say(f"  phase 9: {time.perf_counter() - t0:.3f} s")
 
+    say(f"[10] the MoE, VLM, encdec and hybrid families serving at full "
+        f"width: {', '.join(FAMILY_PATHS)}; {GEN_STEPS} greedy steps "
+        f"each")
+    t0 = time.perf_counter()
+    families = {arch: run_family_path(arch) for arch in FAMILY_PATHS}
+    run_family_serve_cli()
+    say(f"  phase 10: {time.perf_counter() - t0:.3f} s")
+
     # Each kernel's launches on its own path: slice 1's kernels on phase
     # 4's path (their count on the fleet path beside it), the top-k
     # kernels on the fleet path, checksum on the pass over its bodies,
@@ -2293,6 +2811,13 @@ def main(argv: list[str] | None = None) -> int:
                        ("mlstm", "xlstm-350m")):
         out[list(MAIN_SHAPE).index(name)]["serving"] = dict(
             lm[arch][1], arch=arch)
+    gather = out[list(MAIN_SHAPE).index("topk_gather")]
+    gather.update(sector_bound_ms=rows["topk_gather"][MAIN_SHAPE[
+        "topk_gather"]]["sector_bound_ms"])
+    out[list(MAIN_SHAPE).index("flash_attention")].update(
+        launches_family_paths={arch: counts["flash_attention"]
+                               for arch, (counts, _) in families.items()},
+        family_serving={arch: rec for arch, (_, rec) in families.items()})
     for name in ("fedavg", "quantize", "dequantize"):
         out[list(MAIN_SHAPE).index(name)].update(
             launches_lm_fl_path=counts_lmfl[name],

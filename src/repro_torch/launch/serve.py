@@ -1,8 +1,11 @@
 """Serving driver: batched greedy decode with the per-family cache, the
-reference's ``repro.launch.serve`` on the port.  As there, a decoder
-model's prompt goes through decode steps against a full-size cache, then
-greedy generation follows.  Runs on the card unless ``--device`` says
-otherwise.
+reference's ``repro.launch.serve`` on the port.  As there, a decoder-only
+model's prompt goes through decode steps against a full-size cache; an
+encoder-decoder model encodes seeded frames (B, encoder_seq, d_model) in
+its dtype (the stubbed audio frontend's output) and prefills the prompt
+(the flash attention kernel on the card), and its cache is grown to the
+full length.  Then greedy generation follows.  Runs on the card unless
+``--device`` says otherwise.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \
       --smoke --batch 2 --prompt-len 16 --gen 8 --device cpu
@@ -18,6 +21,7 @@ import torch
 from repro_torch import device as _device
 from repro_torch.configs import ARCH_IDS, get_config, smoke_variant
 from repro_torch.models import model as M
+from repro_torch.models import transformer as T
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -46,10 +50,18 @@ def main(argv: list[str] | None = None) -> None:
     decode = M.make_decode_step(cfg)
     max_len = P + G
     with torch.no_grad():
-        # feed the prompt through decode steps against a full-size cache
-        cache = M.init_cache(cfg, B, max_len, dev)
-        for t in range(P):
-            lg, cache = decode(params, cache, prompt[:, t:t + 1])
+        if cfg.family == "encdec":
+            frames = torch.randn((B, cfg.encoder_seq, cfg.d_model),
+                                 generator=gen, device=dev).to(
+                getattr(torch, cfg.dtype))
+            lg, cache = M.make_prefill_step(cfg)(
+                params, {"tokens": prompt, "frames": frames})
+            cache = T.grow_cache(cache, max_len)
+        else:
+            # feed the prompt through decode steps against a full-size cache
+            cache = M.init_cache(cfg, B, max_len, dev)
+            for t in range(P):
+                lg, cache = decode(params, cache, prompt[:, t:t + 1])
         next_tok = torch.argmax(lg, dim=-1)[:, None]
 
         out = [next_tok]

@@ -18,6 +18,7 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import device as _device
@@ -43,12 +44,23 @@ def build(arch: str, smoke: bool, train_cfg: TrainConfig):
 
 def make_batch_fn(cfg, batch, seq, seed=0):
     """Step -> batch of the reference's data pipeline (numpy, the same
-    bits).  The families that need more than tokens are not ported."""
+    bits), with the reference's extra fields: seeded frames for encdec,
+    ``arange`` M-RoPE positions and a zero vision prefix for the VLM."""
     pipe = TokenPipeline(cfg.vocab_size, seq, batch, seed=seed)
 
     def get(step: int) -> dict:
         b = pipe.batch(step)
-        return {"tokens": b["tokens"], "labels": b["labels"]}
+        out = {"tokens": b["tokens"], "labels": b["labels"]}
+        if cfg.family == "encdec":
+            rng = np.random.default_rng(1000 + step)
+            out["frames"] = rng.standard_normal(
+                (batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        if cfg.mrope:
+            out["positions"] = np.broadcast_to(
+                np.arange(seq, dtype=np.int32)[None, None], (3, batch, seq))
+            out["vision_embeds"] = np.zeros(
+                (batch, cfg.vision_tokens, cfg.d_model), np.float32)
+        return out
 
     return get
 

@@ -1,5 +1,5 @@
-"""Shared model building blocks: norms, RoPE, GQA attention, MLPs,
-embeddings (the reference's ``repro.models.layers``, in PyTorch).
+"""Shared model building blocks: norms, RoPE / M-RoPE, GQA attention,
+MLPs, embeddings (the reference's ``repro.models.layers``, in PyTorch).
 
 Conventions, as in the reference:
  * activations (B, S, D); queries (B, S, H, hd); keys/values (B, T, KV, hd);
@@ -9,12 +9,16 @@ Conventions, as in the reference:
    operands are cast to float32 first.
 
 Prefill attention (no ``kv_valid``) goes through the flash attention
-kernel's front door for any sequence length; it takes the place of both
-the reference's ``chunked_attention`` and its short-sequence einsum.  The
-decode step (``kv_valid`` given) and training (``impl="einsum"``, the
-reference's default for a loss: the kernel has no backward) run the
-plain einsum attention.  The
-reference's sharding constraints have no counterpart on one device.
+kernel's front door for any sequence length, causal or not, and for
+cross-attention (queries and keys of other lengths); it takes the place
+of both the reference's ``chunked_attention`` and its short-sequence
+einsum.  The kernel masks by index from 0, so a prefill whose mask
+channel is not ``arange`` (a VLM's position ids may start elsewhere)
+takes the masked route instead (:func:`prefill_route`).  The decode step
+(``kv_valid`` given) and training (``impl="einsum"``, the reference's
+default for a loss: the kernel has no backward) run the plain einsum
+attention.  The reference's sharding constraints have no counterpart on
+one device.
 """
 
 from __future__ import annotations
@@ -40,16 +44,34 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# RoPE
+# RoPE / M-RoPE
 # --------------------------------------------------------------------------
-def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
+                 sections: Optional[tuple] = None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """positions: (B, S) integer -> cos/sin (B, S, hd/2) in float32.
-    (M-RoPE, the reference's ``sections``, is not ported: ROADMAP A3.)"""
+    """positions: (B, S) integer, or (C, B, S) for M-RoPE with C position
+    channels (temporal / height / width) -> cos/sin (B, S, hd/2) in
+    float32.
+
+    M-RoPE (Qwen2-VL): frequency slot i takes its position from channel
+    ``section_id(i)``, ``sections`` giving each channel's slot count.  A
+    channel past the last of ``positions`` reads the last (the reference's
+    gather clamps its index the same way), so (B, S) positions give every
+    channel the same ones."""
     half = head_dim // 2
     idx = torch.arange(half, dtype=torch.float32, device=positions.device)
     freq = theta ** (-idx * 2.0 / head_dim)
-    angles = positions.float()[..., None] * freq
+    if sections is None:
+        angles = positions.float()[..., None] * freq
+        return torch.cos(angles), torch.sin(angles)
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to "
+                         f"head_dim / 2 = {half}")
+    pos = positions if positions.dim() == 3 else positions[None]
+    sec_ids = torch.repeat_interleave(
+        torch.arange(len(sections), device=pos.device),
+        torch.tensor(sections, device=pos.device)).clamp(max=pos.shape[0] - 1)
+    angles = pos[sec_ids].permute(1, 2, 0).float() * freq   # (B, S, half)
     return torch.cos(angles), torch.sin(angles)
 
 
@@ -122,25 +144,45 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 #: attention routes without a cache: the flash attention kernel's front
 #: door, or its plain version (``chip_smoke.py`` holds the one against the
-#: other), for prefill; the einsum attention for training
-PREFILL_IMPLS = ("kernel", "plain", "einsum")
+#: other), for a prefill whose positions run from 0; the masked route (the
+#: einsum attention, masking by the positions themselves) for a prefill
+#: whose positions do not (:func:`prefill_route`); the einsum attention
+#: for training
+PREFILL_IMPLS = ("kernel", "plain", "masked", "einsum")
+MASKED = "masked"
+
+
+def positions_from_zero(pos: torch.Tensor) -> bool:
+    """Whether a mask channel (S,) is ``arange(S)``, the positions the
+    flash attention kernel masks by (one read of the tensor: on the card
+    a wait for it)."""
+    return bool(torch.equal(pos, torch.arange(
+        pos.shape[-1], dtype=pos.dtype, device=pos.device)))
+
+
+def prefill_route(impl: str, q_pos: torch.Tensor) -> str:
+    """The route of a prefill's attention whose mask channel is ``q_pos``
+    (the keys' too): ``impl`` where the positions are ``arange`` (every
+    driver of the repo), else :data:`MASKED`.  A semantic route, taken
+    before any launch: the kernel cannot mask by other positions."""
+    if impl in ("kernel", "plain") and not positions_from_zero(q_pos):
+        return MASKED
+    return impl
 
 
 def attention(q, k, v, *, q_pos, kv_pos, causal=True, window=0,
               kv_valid=None, impl: str = "kernel"):
-    """Prefill (``kv_valid is None``): flash attention, whose positions run
-    from 0 (``q_pos``/``kv_pos`` are ``arange``), by the ``impl`` route.
-    Decode, and ``impl="einsum"``: einsum attention (over the populated
-    cache, for decode)."""
-    if kv_valid is None and impl != "einsum":
-        if impl == "kernel":
-            return flash_ops.flash_attention(q, k, v, causal=causal,
-                                             window=window)
-        if impl == "plain":
-            return flash_ref.flash_attention(q, k, v, causal=causal,
-                                             window=window)
-        raise ValueError(f"prefill attention impl {impl!r} not in "
-                         f"{PREFILL_IMPLS}")
+    """Prefill (``kv_valid is None``), ``impl`` ``"kernel"`` or
+    ``"plain"``: flash attention, which masks by index from 0 (the caller
+    has checked that ``q_pos`` / ``kv_pos`` are ``arange``, see
+    :func:`prefill_route`); queries and keys may differ in length.
+    Decode, ``impl="masked"`` and ``impl="einsum"``: einsum attention,
+    masked by the positions (over the populated cache, for decode)."""
+    if kv_valid is None and impl in ("kernel", "plain"):
+        fn = flash_ops if impl == "kernel" else flash_ref
+        return fn.flash_attention(q, k, v, causal=causal, window=window)
+    if impl not in PREFILL_IMPLS:
+        raise ValueError(f"attention impl {impl!r} not in {PREFILL_IMPLS}")
     return gqa_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=causal,
                          window=window, kv_valid=kv_valid)
 

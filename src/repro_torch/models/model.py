@@ -8,14 +8,15 @@
   make_prefill_step(cfg)        -> callable(params, batch) -> (logits, cache)
   make_decode_step(cfg)         -> callable(params, cache, tokens) -> (logits, cache)
 
-Ported families: ``dense`` (transformer) and ``ssm`` (xLSTM).  Prefill runs
-the hand-written kernels (flash attention, chunkwise mLSTM); ``attn_impl=
-"plain"`` runs their plain versions instead.  Prefill pads nothing: a
-transformer cache comes back with the prompt's length, and the caller
-grows it (``transformer.grow_cache``) before decoding past it.  The loss
-runs what the reference's loss runs (einsum attention, ``mlstm_chunked``)
-under ``torch.autograd``; no kernel sits on it.  The other families are
-not ported yet (ROADMAP A3).
+Every family of the reference: ``dense``, ``moe`` and ``vlm``
+(transformer), ``encdec`` (whisper), ``ssm`` (xLSTM) and ``hybrid``
+(hymba).  Prefill runs the hand-written kernels (flash attention,
+chunkwise mLSTM); ``attn_impl="plain"`` runs their plain versions
+instead.  Prefill pads nothing: a cache comes back with the prompt's
+length, and the caller grows it (``transformer.grow_cache``) before
+decoding past it.  The loss runs what the reference's loss runs (einsum
+attention, ``mlstm_chunked``, the MoE by ``moe_impl``) under
+``torch.autograd``; no kernel sits on it.
 """
 
 from __future__ import annotations
@@ -28,44 +29,51 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.models import encdec as E
+from repro_torch.models import hymba as HY
 from repro_torch.models import transformer as T
 from repro_torch.models import xlstm as X
 from repro_torch.optim import Optimizer, TrainState
 from repro_torch.tree import rebuild, tree_leaves
 
-PORTED_FAMILIES = ("dense", "ssm")
+TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported to "
-            f"repro_torch yet (ROADMAP A3: MoE, VLM, encdec and hybrid "
-            f"serving and training come after the dense and ssm families)")
+def _family(cfg: ModelConfig) -> str:
+    """``"transformer"``, ``"encdec"``, ``"ssm"`` or ``"hybrid"``."""
+    if cfg.family in TRANSFORMER_FAMILIES:
+        return "transformer"
+    if cfg.family in ("encdec", "ssm", "hybrid"):
+        return cfg.family
+    raise ValueError(f"unknown model family {cfg.family!r}")
 
 
 def init(cfg: ModelConfig, gen: torch.Generator,
          device: _device.DeviceLike | None = None) -> dict:
-    _check_family(cfg)
-    if cfg.family == "dense":
-        return T.init_decoder(cfg, gen, device)
-    return X.init_xlstm(cfg, gen, device)
+    return {"transformer": T.init_decoder, "encdec": E.init_encdec,
+            "ssm": X.init_xlstm, "hybrid": HY.init_hymba}[_family(cfg)](
+        cfg, gen, device)
 
 
 # --------------------------------------------------------------------------
 # loss / train step
 # --------------------------------------------------------------------------
 def loss_fn(cfg: ModelConfig, *, remat_policy: str = "dots",
-            loss_chunk: int = 0) -> Callable[[Any, dict], torch.Tensor]:
-    """The training loss: einsum attention and ``mlstm_chunked`` under
-    ``torch.autograd``, as the reference's default loss (no kernel has a
-    backward, so none sits on it)."""
-    _check_family(cfg)
-    if cfg.family == "dense":
+            loss_chunk: int = 0, moe_impl: str = "scan"
+            ) -> Callable[[Any, dict], torch.Tensor]:
+    """The training loss: einsum attention, ``mlstm_chunked`` and the MoE
+    by ``moe_impl`` (``"scan"`` or ``"ragged"``) under ``torch.autograd``,
+    as the reference's default loss (no kernel has a backward, so none
+    sits on it).  ``loss_chunk`` and ``moe_impl`` reach the transformer
+    families, as in the reference."""
+    family = _family(cfg)
+    if family == "transformer":
         return functools.partial(T.decoder_loss, cfg,
                                  remat_policy=remat_policy,
-                                 loss_chunk=loss_chunk)
-    return functools.partial(X.xlstm_loss, cfg, remat_policy=remat_policy)
+                                 loss_chunk=loss_chunk, moe_impl=moe_impl)
+    return functools.partial({"encdec": E.encdec_loss, "ssm": X.xlstm_loss,
+                              "hybrid": HY.hymba_loss}[family], cfg,
+                             remat_policy=remat_policy)
 
 
 def batch_to(batch: dict, device: torch.device) -> dict:
@@ -101,24 +109,27 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
     each a 0-d tensor.  The batch goes to the parameters' device."""
     tc = train_cfg or TrainConfig()
     lf = loss_fn(cfg, remat_policy=tc.remat_policy,
-                 loss_chunk=tc.loss_chunk)
+                 loss_chunk=tc.loss_chunk, moe_impl=tc.moe_impl)
+
+    def _micro(key, val, n, i):
+        """Microbatch ``i`` of ``n``: along the batch axis, which M-RoPE's
+        (3, B, S) positions hold second."""
+        axis = 1 if key == "positions" else 0
+        if val.shape[axis] % n:
+            raise ValueError(f"batch[{key!r}] holds {val.shape[axis]} "
+                             f"rows, which {n} microbatches do not divide")
+        return val.chunk(n, dim=axis)[i]
 
     def _grads(params, batch):
         if tc.grad_accum <= 1:
             return value_and_grad(lf, params, batch)
         n = tc.grad_accum
-        for key, val in batch.items():
-            if val.shape[0] % n:
-                raise ValueError(f"batch[{key!r}] leads with "
-                                 f"{val.shape[0]}, which {n} microbatches "
-                                 f"do not divide")
         adt = getattr(torch, tc.accum_dtype)
         gsum = [torch.zeros(p.shape, dtype=adt, device=p.device)
                 for p in tree_leaves(params)]
         lsum = torch.zeros((), dtype=torch.float32)
         for i in range(n):
-            micro = {key: val.reshape(n, val.shape[0] // n,
-                                      *val.shape[1:])[i]
+            micro = {key: _micro(key, val, n, i)
                      for key, val in batch.items()}
             loss, g = value_and_grad(lf, params, micro)
             gsum = [a + b.to(adt) for a, b in zip(gsum, tree_leaves(g))]
@@ -149,33 +160,49 @@ def init_train_state(cfg: ModelConfig, opt: Optimizer, gen: torch.Generator,
 # --------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: _device.DeviceLike | None = None) -> dict:
-    _check_family(cfg)
-    if cfg.family == "dense":
-        return T.init_cache(cfg, batch, max_len, device)
-    return X.init_xlstm_state(cfg, batch, device)
+    family = _family(cfg)
+    if family == "ssm":
+        return X.init_xlstm_state(cfg, batch, device)
+    return {"transformer": T.init_cache, "encdec": E.init_encdec_cache,
+            "hybrid": HY.init_hymba_cache}[family](cfg, batch, max_len,
+                                                   device)
 
 
 def make_prefill_step(cfg: ModelConfig, attn_impl: str = "kernel"
                       ) -> Callable:
-    _check_family(cfg)
-    if cfg.family == "dense":
-        def prefill(params, batch):
-            return T.decoder_prefill(cfg, params, batch["tokens"],
-                                     attn_impl=attn_impl)
-        return prefill
+    """``prefill(params, batch) -> (last-position logits, cache)``; the
+    batch holds ``tokens``, and ``positions`` / ``vision_embeds`` (VLM) or
+    ``frames`` (encdec) where the family takes them."""
+    family = _family(cfg)
 
     def prefill(params, batch):
-        return X.xlstm_prefill(cfg, params, batch["tokens"], impl=attn_impl)
+        tokens = batch["tokens"]
+        if family == "transformer":
+            return T.decoder_prefill(
+                cfg, params, tokens, positions=batch.get("positions"),
+                vision_embeds=batch.get("vision_embeds"), attn_impl=attn_impl)
+        if family == "encdec":
+            return E.encdec_prefill(cfg, params, tokens, batch["frames"],
+                                    attn_impl=attn_impl)
+        if family == "ssm":
+            return X.xlstm_prefill(cfg, params, tokens, impl=attn_impl)
+        return HY.hymba_prefill(cfg, params, tokens, attn_impl=attn_impl)
     return prefill
 
 
 def make_decode_step(cfg: ModelConfig) -> Callable:
-    _check_family(cfg)
-    if cfg.family == "dense":
-        def decode(params, cache, tokens):
-            return T.decoder_decode(cfg, params, cache, tokens)
+    """``decode(params, cache, tokens, positions=None) -> (logits,
+    cache)``; ``positions`` reach the transformer families (M-RoPE's
+    (3, B, 1)), as in the reference."""
+    family = _family(cfg)
+    if family == "transformer":
+        def decode(params, cache, tokens, positions=None):
+            return T.decoder_decode(cfg, params, cache, tokens,
+                                    positions=positions)
         return decode
+    fn = {"encdec": E.encdec_decode, "ssm": X.xlstm_decode,
+          "hybrid": HY.hymba_decode}[family]
 
-    def decode(params, cache, tokens):
-        return X.xlstm_decode(cfg, params, cache, tokens)
+    def decode(params, cache, tokens, positions=None):
+        return fn(cfg, params, cache, tokens)
     return decode

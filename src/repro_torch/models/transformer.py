@@ -1,34 +1,37 @@
-"""Decoder-only transformer, dense family (granite / starcoder2 / yi /
-gemma3): the reference's ``repro.models.transformer`` in PyTorch.
+"""Decoder-only transformer family: dense (granite / starcoder2 / yi /
+gemma3), MoE (qwen3-moe / olmoe) and VLM (the qwen2-vl text backbone with
+a patch-embedding prefix and M-RoPE): the reference's
+``repro.models.transformer`` in PyTorch.
 
 Parameters keep the reference's stacked-by-layer layout (every tensor of
 ``params["layers"]`` leads with the layer axis), so a reference tree
 carries across leaf for leaf (:func:`repro_torch.convert.tree_from_reference`);
-the reference's ``scan`` over layers is a Python loop over that axis.
+the reference's ``scan`` over layers is a Python loop over that axis, and
+its ``scan`` over experts a loop over the expert axis.
 Heterogeneous attention (gemma3's 5 local : 1 global) is a per-layer
 window: 0 for global layers, ``sliding_window`` for local ones.
 
-Prefill attention runs the flash attention kernel (``layers.attention``);
-decode attends over the cache with the plain einsum attention, and so
-does the training loss (``decoder_loss``, as the reference's default
-``attn_impl="einsum"``).  MoE and the VLM backbone (M-RoPE, vision
-prefix) are not ported yet: they raise ``NotImplementedError`` (ROADMAP
-A3).
+Prefill attention runs the flash attention kernel (``layers.attention``)
+where the positions' mask channel runs from 0, else the masked einsum
+route (``layers.prefill_route``); decode attends over the cache with the
+plain einsum attention, and so does the training loss (``decoder_loss``,
+as the reference's default ``attn_impl="einsum"``).  The MoE block is the
+reference's scan over all experts with top-k combine weights (serving
+and the default loss) or, for ``moe_impl="ragged"``, its capacity-grouped
+dispatch with GShard drops, in its one-device form; the expert products
+are plain ``torch`` matmuls, as the reference leaves them to XLA.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-
-_NOT_PORTED = ("{what} is not ported to repro_torch yet (ROADMAP A3: "
-               "MoE, VLM, encdec and hybrid serving and training come "
-               "after the dense and ssm families)")
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -37,14 +40,6 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
-
-
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.num_experts:
-        raise NotImplementedError(_NOT_PORTED.format(what="MoE"))
-    if cfg.mrope:
-        raise NotImplementedError(_NOT_PORTED.format(
-            what="M-RoPE / the vision prefix"))
 
 
 def is_global_flags(cfg: ModelConfig) -> np.ndarray:
@@ -72,7 +67,6 @@ def init_decoder(cfg: ModelConfig, gen: torch.Generator,
                  device: _device.DeviceLike | None = None) -> dict:
     """Random parameters in the reference's tree layout, drawn from
     ``gen`` (a generator on ``device``)."""
-    _check_dense(cfg)
     dev = _device.resolve(device)
     dt = _dtype(cfg)
     d, hd = cfg.d_model, cfg.resolved_head_dim
@@ -90,10 +84,17 @@ def init_decoder(cfg: ModelConfig, gen: torch.Generator,
         "wv": init((Lr, d, KV, hd), d),
         "wo": init((Lr, H, hd, d), H * hd),
     }
-    if cfg.mlp_type == "swiglu":
-        layer["w_gate"] = init((Lr, d, F), d)
-    layer["w_up"] = init((Lr, d, F), d)
-    layer["w_down"] = init((Lr, F, d), F)
+    if cfg.num_experts:
+        E = cfg.num_experts
+        layer["router"] = init((Lr, d, E), d)
+        layer["we_gate"] = init((Lr, E, d, F), d)
+        layer["we_up"] = init((Lr, E, d, F), d)
+        layer["we_down"] = init((Lr, E, F, d), F)
+    else:
+        if cfg.mlp_type == "swiglu":
+            layer["w_gate"] = init((Lr, d, F), d)
+        layer["w_up"] = init((Lr, d, F), d)
+        layer["w_down"] = init((Lr, F, d), F)
     params = {"embed": init((V, d), d),
               "final_norm": torch.ones((d,), dtype=dt, device=dev),
               "layers": layer}
@@ -109,6 +110,73 @@ def _layer(params: dict, i: int) -> dict:
 # --------------------------------------------------------------------------
 # Blocks
 # --------------------------------------------------------------------------
+def _router(x, router, K):
+    """Top-``K`` experts of each token and their renormalised softmax
+    weights, from float32 router logits: (weights, indices), (..., K)."""
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)
+    top_w, top_i = torch.topk(probs, K, dim=-1)
+    return top_w / top_w.sum(dim=-1, keepdim=True), top_i
+
+
+def _moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Top-k MoE, the reference's baseline: every expert computed over
+    every token, weighted by its combine weight (0 off the top k), summed
+    in the model dtype in expert order."""
+    top_w, top_i = _router(x, p["router"], cfg.num_experts_per_tok)
+    combine = torch.zeros(x.shape[:-1] + (cfg.num_experts,), dtype=x.dtype,
+                          device=x.device).scatter_(-1, top_i,
+                                                    top_w.to(x.dtype))
+    acc = torch.zeros_like(x)
+    for e in range(cfg.num_experts):
+        h = F.silu(x @ p["we_gate"][e]) * (x @ p["we_up"][e])
+        acc = acc + (h * combine[..., e, None]) @ p["we_down"][e]
+    return acc
+
+
+MOE_CAPACITY_FACTOR = 2.0   # expert capacity = cf * TK/E (grouped MoE path)
+
+
+def _moe_block_ragged(x: torch.Tensor, p: dict,
+                      cfg: ModelConfig) -> torch.Tensor:
+    """Top-k MoE by capacity-grouped dispatch (the reference's
+    ``_moe_block_ragged`` off the mesh): the T*K (token, expert) rows
+    sorted by expert with a stable sort (``jnp.argsort``'s), each expert's
+    first ``cap`` rows gathered into a dense (E, cap, d) block, rows past
+    an expert's capacity dropped (GShard), the expert products in float32
+    (``preferred_element_type``), the rows scattered back and combined."""
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    B, S, d = x.shape
+    T = B * S
+    xf = x.reshape(T, d)
+    top_w, top_i = _router(xf, p["router"], K)
+    flat_e = top_i.reshape(-1)
+    TK = T * K
+    order = torch.argsort(flat_e, stable=True)
+    x_sorted = xf[order // K]                                    # (TK, d)
+    group_sizes = torch.bincount(flat_e, minlength=E)
+    cap = min(TK, int(-(-TK // E) * MOE_CAPACITY_FACTOR))
+    starts = torch.cumsum(group_sizes, 0) - group_sizes
+    slot = torch.arange(cap, device=x.device)
+    valid = slot[None, :] < group_sizes[:, None]                 # (E, cap)
+    rows = torch.where(valid, starts[:, None] + slot[None, :], TK)
+    x_grp = torch.cat([x_sorted, x_sorted.new_zeros((1, d))])[rows]
+    g = torch.bmm(x_grp.float(), p["we_gate"].float())
+    u = torch.bmm(x_grp.float(), p["we_up"].float())
+    h = (F.silu(g) * u).to(x.dtype)                              # (E,cap,F)
+    o = torch.bmm(h.float(), p["we_down"].float())               # (E,cap,d)
+    o_sorted = torch.zeros((TK + 1, d), dtype=o.dtype,
+                           device=x.device).index_add_(
+        0, rows.reshape(-1), o.reshape(-1, d) * valid.reshape(-1, 1))
+    o_tok = torch.einsum("tkd,tk->td",
+                         o_sorted[:TK][torch.argsort(order)].reshape(T, K, d),
+                         top_w.to(o.dtype))
+    return o_tok.reshape(B, S, d).to(x.dtype)
+
+
+#: the MoE block's routes: the scan over all experts, or the dispatch
+MOE_IMPLS = ("scan", "ragged")
+
+
 def _attn_block(x, p, cos, sin, positions, window, impl):
     """Prefill self-attention of one layer: (output, k, v)."""
     q, k, v = L.qkv_proj(x, p["wq"], p["wk"], p["wv"])
@@ -119,36 +187,70 @@ def _attn_block(x, p, cos, sin, positions, window, impl):
     return L.out_proj(o, p["wo"]), k, v
 
 
-def _ffn(x, p, cfg):
-    """The dense feed-forward block (MoE is not ported)."""
+def _ffn(x, p, cfg, moe_impl: str = "scan"):
+    """The feed-forward block: the MoE by ``moe_impl``, or the dense MLP."""
+    if cfg.num_experts:
+        if moe_impl == "ragged":
+            return _moe_block_ragged(x, p, cfg)
+        if moe_impl != "scan":
+            raise ValueError(f"moe_impl {moe_impl!r} not in {MOE_IMPLS}")
+        return _moe_block(x, p, cfg)
     return L.mlp(x, p, cfg.mlp_type)
+
+
+def _rope(cfg: ModelConfig, positions: torch.Tensor):
+    sections = cfg.mrope_sections if cfg.mrope else None
+    return L.rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta,
+                          sections)
 
 
 # --------------------------------------------------------------------------
 # Forward (prefill hidden states)
 # --------------------------------------------------------------------------
+def default_positions(tokens: torch.Tensor) -> torch.Tensor:
+    """(B, S) positions 0..S-1, each row alike."""
+    B, S = tokens.shape
+    return torch.arange(S, dtype=torch.int32,
+                        device=tokens.device)[None].expand(B, S)
+
+
+def mask_channel(positions: torch.Tensor) -> torch.Tensor:
+    """The (S,) positions that mask attention, as the reference takes
+    them: batch row 0 of (B, S) positions, or of the temporal channel of
+    M-RoPE's (3, B, S)."""
+    return positions[0] if positions.dim() == 2 else positions[0, 0]
+
+
 def decoder_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+                   positions: torch.Tensor | None = None,
+                   vision_embeds: torch.Tensor | None = None,
                    attn_impl: str = "kernel", remat_policy: str = "none",
-                   collect_kv: bool = False):
+                   moe_impl: str = "scan", collect_kv: bool = False):
     """tokens (B,S) -> hidden (B,S,D); optionally per-layer (k, v) stacks
-    (L, B, S, KV, hd).  ``remat_policy`` ``"full"`` or ``"dots"`` wraps
-    each layer in ``torch.utils.checkpoint`` (non-reentrant), as the
+    (L, B, S, KV, hd).  ``positions``: (B, S), or (3, B, S) for M-RoPE
+    (default ``arange``); ``vision_embeds`` (B, V, D) replace the first V
+    token embeddings (the VLM's patch-embedding prefix).  A prefill whose
+    mask channel is not ``arange`` takes the masked attention route
+    (``layers.prefill_route``).  ``remat_policy`` ``"full"`` or ``"dots"``
+    wraps each layer in ``torch.utils.checkpoint`` (non-reentrant), as the
     reference wraps its layer body in ``jax.checkpoint``; values are the
     same (there is no counterpart of the ``dots`` save policy: the whole
     layer is recomputed)."""
-    _check_dense(cfg)
-    B, S = tokens.shape
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=tokens.device)[None].expand(B, S)
-    cos, sin = L.rope_cos_sin(positions, cfg.resolved_head_dim,
-                              cfg.rope_theta)
+    if positions is None:
+        positions = default_positions(tokens)
+    cos, sin = _rope(cfg, positions)
     x = L.embed_tokens(params["embed"], tokens)
+    if vision_embeds is not None:
+        x = torch.cat([vision_embeds.to(x.dtype),
+                       x[:, vision_embeds.shape[1]:]], dim=1)
+    q_pos = mask_channel(positions)
+    impl = L.prefill_route(attn_impl, q_pos)
 
     def body(h, p, window):
         attn_out, k, v = _attn_block(L.rmsnorm(h, p["attn_norm"]), p, cos,
-                                     sin, positions[0], window, attn_impl)
+                                     sin, q_pos, window, impl)
         h = h + attn_out
-        return h + _ffn(L.rmsnorm(h, p["mlp_norm"]), p, cfg), k, v
+        return h + _ffn(L.rmsnorm(h, p["mlp_norm"]), p, cfg, moe_impl), k, v
 
     ks, vs = [], []
     for p, window in zip(L.unstack_layers(params["layers"], 1),
@@ -174,15 +276,18 @@ def decoder_logits(cfg: ModelConfig, params: dict,
 
 
 def decoder_loss(cfg: ModelConfig, params: dict, batch: dict, *,
-                 remat_policy: str = "dots", loss_chunk: int = 0
-                 ) -> torch.Tensor:
+                 remat_policy: str = "dots", loss_chunk: int = 0,
+                 moe_impl: str = "scan") -> torch.Tensor:
     """Mean next-token NLL of ``batch["tokens"]`` against
-    ``batch["labels"]`` (labels < 0 masked).  With ``loss_chunk`` dividing
-    the sequence, the logits are formed ``loss_chunk`` positions at a
-    time, never all (B,S,V) at once."""
-    _check_dense(cfg)
+    ``batch["labels"]`` (labels < 0 masked), with the batch's
+    ``positions`` and ``vision_embeds`` where it has them.  With
+    ``loss_chunk`` dividing the sequence, the logits are formed
+    ``loss_chunk`` positions at a time, never all (B,S,V) at once."""
     hidden = decoder_hidden(cfg, params, batch["tokens"],
-                            attn_impl="einsum", remat_policy=remat_policy)
+                            positions=batch.get("positions"),
+                            vision_embeds=batch.get("vision_embeds"),
+                            attn_impl="einsum", remat_policy=remat_policy,
+                            moe_impl=moe_impl)
     labels = batch["labels"]
     if loss_chunk and hidden.shape[1] % loss_chunk == 0:
         tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -204,7 +309,6 @@ def decoder_loss(cfg: ModelConfig, params: dict, batch: dict, *,
 # --------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: _device.DeviceLike | None = None) -> dict:
-    _check_dense(cfg)
     dev = _device.resolve(device)
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
              cfg.resolved_head_dim)
@@ -214,8 +318,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def grow_cache(cache: dict, max_len: int) -> dict:
-    """The cache with its time axis zero-padded to ``max_len`` slots (what
-    the reference's serve driver does with ``jnp.pad`` after a prefill)."""
+    """The cache with the time axis of its self-attention ``k`` / ``v``
+    zero-padded to ``max_len`` slots (what the reference's serve driver
+    does with ``jnp.pad`` after a prefill; any family's cache that holds
+    them: the transformer's, hymba's, the encoder-decoder's)."""
     pad = max_len - cache["k"].shape[2]
     if pad < 0:
         raise ValueError(f"cache holds {cache['k'].shape[2]} slots, more "
@@ -228,11 +334,14 @@ def grow_cache(cache: dict, max_len: int) -> dict:
 
 
 def decoder_prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+                    positions: torch.Tensor | None = None,
+                    vision_embeds: torch.Tensor | None = None,
                     attn_impl: str = "kernel"):
     """Full-sequence forward that also returns the populated KV cache and the
     last-position logits (the realistic serve entry point)."""
-    hidden, (k, v) = decoder_hidden(cfg, params, tokens, attn_impl=attn_impl,
-                                    collect_kv=True)
+    hidden, (k, v) = decoder_hidden(cfg, params, tokens, positions=positions,
+                                    vision_embeds=vision_embeds,
+                                    attn_impl=attn_impl, collect_kv=True)
     cache = {"k": k, "v": v, "pos": tokens.shape[1]}
     logits = L.logits_from_hidden(hidden[:, -1:], params,
                                   cfg.tie_embeddings)
@@ -240,11 +349,13 @@ def decoder_prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
 
 
 def decoder_decode(cfg: ModelConfig, params: dict, cache: dict,
-                   tokens: torch.Tensor):
-    """One decode step. tokens (B,1); cache KV (L,B,T,KV,hd); returns
-    (logits (B,Vpad), new cache).  The cache tensors are written in place
-    at slot ``pos`` (the reference returns updated copies)."""
-    _check_dense(cfg)
+                   tokens: torch.Tensor, *,
+                   positions: torch.Tensor | None = None):
+    """One decode step. tokens (B,1); cache KV (L,B,T,KV,hd); ``positions``
+    (B,1) or M-RoPE's (3,B,1) for the rotary angles (default: the cache
+    position); returns (logits (B,Vpad), new cache).  The cache tensors
+    are written in place at slot ``pos`` (the reference returns updated
+    copies)."""
     B, S1 = tokens.shape
     T = cache["k"].shape[2]
     pos = int(cache["pos"])
@@ -252,9 +363,9 @@ def decoder_decode(cfg: ModelConfig, params: dict, cache: dict,
         raise ValueError(f"decode at position {pos} but the cache holds "
                          f"{T} slots; grow it first")
     dev = tokens.device
-    positions = torch.full((B, S1), pos, dtype=torch.int32, device=dev)
-    cos, sin = L.rope_cos_sin(positions, cfg.resolved_head_dim,
-                              cfg.rope_theta)
+    if positions is None:
+        positions = torch.full((B, S1), pos, dtype=torch.int32, device=dev)
+    cos, sin = _rope(cfg, positions)
     x = L.embed_tokens(params["embed"], tokens)
     q_pos = torch.full((S1,), pos, dtype=torch.int32, device=dev)
     kv_pos = torch.arange(T, dtype=torch.int32, device=dev)

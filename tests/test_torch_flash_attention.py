@@ -129,6 +129,34 @@ def test_gqa_front_door_matches_model_attention(S, window):
                                    atol=TOL)
 
 
+@pytest.mark.parametrize("B,S,T,H,KV,hd,causal,window", [
+    (2, 64, 256, 6, 6, 64, False, 0),      # cross-attention, S != T
+    (1, 128, 384, 4, 4, 64, False, 0),
+    (1, 256, 256, 5, 1, 64, True, 100),    # GQA ratio 5 (hymba 25 / 5)
+    (1, 128, 128, 4, 4, 128, True, 0),     # MHA, KV = H (olmoe)
+])
+def test_new_family_shapes_match_reference(B, S, T, H, KV, hd, causal,
+                                           window):
+    """The shapes the MoE, VLM, encdec and hybrid families bring: the
+    port's front door (its plain version on the CPU) against the
+    reference's einsum ``gqa_attention`` and, where its tiles divide S and
+    T, its Pallas front door in interpret mode."""
+    rng = np.random.default_rng(S + T + H)
+    q = _randn(rng, (B, S, H, hd))
+    k, v = _randn(rng, (B, T, KV, hd)), _randn(rng, (B, T, KV, hd))
+    got = flash_ops.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                    causal=causal, window=window).numpy()
+    ref = ref_layers.gqa_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        q_pos=jnp.arange(S), kv_pos=jnp.arange(T), causal=causal,
+        window=window)
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=TOL, atol=TOL)
+    pallas = pallas_front_door(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), causal=causal, window=window,
+                               interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), rtol=TOL, atol=TOL)
+
+
 def test_model_prefill_attention_routes_agree():
     """``layers.attention`` without ``kv_valid``: the kernel route (its
     plain version on the CPU) equals the plain route and the decode path's
@@ -242,3 +270,34 @@ def test_kernel_matches_plain_version_on_the_card():
     torch.testing.assert_close(got.float(),
                                flash_ref.flash_attention(q, k, v).float(),
                                rtol=BF16_TOL, atol=BF16_TOL)
+
+
+def test_kernel_at_the_new_family_shapes_on_the_card():
+    """bf16 (the tensor-core kernel) within the bf16 band, and f32 (the
+    CUDA-core kernel) at 2e-5, at the layer shapes the MoE, VLM, encdec
+    and hybrid families give it: hd 64 bidirectional over 1500 frames
+    (whisper's encoder), 64 queries over 1500 keys without a mask (its
+    cross-attention), MHA with KV = H = 16 at hd 128 (olmoe), and 25 query
+    heads over 5 KV heads at hd 64 with window 1024 (hymba)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs this check "
+                    "on the card")
+    rng = np.random.default_rng(18)
+    dev = torch.device("cuda")
+    for B, S, T, H, KV, hd, causal, window in (
+            (2, 1500, 1500, 6, 6, 64, False, 0),
+            (2, 64, 1500, 6, 6, 64, False, 0),
+            (1, 700, 700, 16, 16, 128, True, 0),
+            (1, 1500, 1500, 25, 5, 64, True, 1024)):
+        q = torch.from_numpy(_randn(rng, (B, S, H, hd)))
+        k, v = (torch.from_numpy(_randn(rng, (B, T, KV, hd)))
+                for _ in range(2))
+        for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, TOL)):
+            qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+            got = flash_ops.flash_attention(
+                qd.to(dev), kd.to(dev), vd.to(dev), causal=causal,
+                window=window).cpu()
+            want = flash_ref.flash_attention(qd, kd, vd, causal=causal,
+                                             window=window)
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)

@@ -204,11 +204,18 @@ def test_train_step_matches_reference(arch, kw):
                 assert (diff > 1e-6).mean() <= ADAM_FLIP_SHARE[arch]
 
 
-def test_unported_families_raise_in_training():
-    for arch in ("olmoe-1b-7b", "qwen2-vl-72b"):
-        cfg = smoke_variant(get_config(arch))
-        with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-            port_model.loss_fn(cfg)
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen2-vl-72b",
+                                  "whisper-tiny", "hymba-1.5b"])
+def test_train_entry_point_runs_every_family(arch, capsys):
+    """The training entry point's batches carry each family's inputs
+    (frames, M-RoPE positions and a vision prefix); the losses are held
+    against the reference in tests/test_torch_{moe,vlm,encdec,hymba}.py."""
+    from repro_torch.launch import train
+    train.main(["--arch", arch, "--smoke", "--steps", "2", "--batch", "2",
+                "--seq", "16", "--device", "cpu", "--log-every", "1",
+                "--grad-accum", "2"])
+    out = capsys.readouterr().out
+    assert "step     1 loss" in out and out.rstrip().endswith("done")
 
 
 # --------------------------------------------------------------------------
