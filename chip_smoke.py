@@ -99,7 +99,35 @@ Phases, each printed on its own lines; any failure exits non-zero:
    copy (f32_twin): the f32 holds against LM_F32_REL_L2, and its bf16
    logits against the float32 model's.  Then ``serve --smoke --device
    cuda`` for one configuration of each family, the four at once.
-11. A JSON line with every kernel's numbers, one with phases 8 and 9's,
+11. The rest of the fleet layer (``repro_torch.fleet_sim`` and
+   ``repro_torch.fleet_gates``), every run at the reference example's full
+   width (48 clients, seed 7, a 4 s deadline, ``buffer_k`` 8): (a) its
+   consensus arms (1024 parameters, static control, over mudp and udp):
+   ``--topology hier --cells 4`` sync, hier with an async root,
+   ``--topology gossip --neighbors 4`` and star ``--mode async`` (12
+   aggregations), each bitwise against the reference's pins
+   (``fleet_sim.PINNED_ARMS``: per round the arrivals, late folds,
+   retransmissions and bytes on each hop, and the SHA-256 of the final
+   global parameters); (b) the MLP (784-32-10) under hier with adaptive
+   control and the per-hop specs, 3 sync rounds over ``mudp+fec``, against
+   ``fleet_sim.PINNED_HIER_ADAPTIVE`` (the cells' and the root's tier counts
+   included), with the launches of fedavg, quantize, dequantize and the
+   top-k gather and scatter and their calls by shape (each must launch);
+   (c) the MLP's star sync arm over mudp under ``--train-backend vmap``
+   against ``python``: identical rosters, arrivals and ``duration_ns``,
+   the global parameters within VMAP_ATOL (their ULP distances printed),
+   and ``BatchTrainer.batch_sizes``, fewer calls than trainings; (d) the
+   vmap compute matrix (ms a call, python and vmap, at 16, 64 and 256
+   clients of the reference benchmark's smoke MLP and at 256 of the full
+   one; the speedup beside the reference's 5x gate, printed, not held),
+   one profiled vmap call's device time and idle share, and the learning
+   curve (16 clients, 10% loss, non-IID alpha 0.5, vmap), which must reach
+   0.95 accuracy within 20 rounds; (e) the topology gates (root link
+   linear in cells, hier's loss equal to star's, serverless gossip
+   reaching 10% of L0) and the async gate (async time-to-target <= 0.8x
+   sync).  Each arm prints (f) its round wall, its launches, and the idle
+   share of a few more rounds under the profiler.
+12. A JSON line with every kernel's numbers, one with phases 8, 9 and 11's,
    the card line again, and the result line ``{"ok": true, "device":
    {...}}`` last.
 
@@ -125,8 +153,8 @@ CTA, and fails on a spill.
 
 Launch counts are zeroed just before each path (phases 4, 5, the
 checksum pass of 5, the serving run of 6, of 7 and of each configuration
-of 10, the training steps of 8 and the rounds of 9) and read just after
-it, so the comparison launches of phase 2, of the ``encode_batch`` check
+of 10, the training steps of 8, the rounds of 9 and of each arm of 11)
+and read just after it, so the comparison launches of phase 2, of the ``encode_batch`` check
 and of the serving holds do not count.
 
 ``--parent DIR`` builds the top-k scatter and dequantize of a checkout from before
@@ -2613,6 +2641,294 @@ def hold_lm_fl_tiny(dev: str = "cuda") -> dict:
             "tiny_move_rel_l2": dist}
 
 
+# --------------------------------------------------------------------------
+# Phase 11: the rest of the fleet layer (hier, gossip, async, vmap)
+# --------------------------------------------------------------------------
+#: The five FL kernels on the adaptive paths, by the wrapper module that
+#: launches each.
+FL_WRAPPERS = (("fedavg", "fedavg"), ("quantize", "quantize"),
+               ("quantize", "dequantize"), ("topk", "topk_gather"),
+               ("topk", "topk_scatter"))
+#: the extra rounds (sync) or aggregations (async) profiled per arm
+PROFILED_ROUNDS = {"sync": 3, "async": 6}
+MATRIX_CLIENTS = (16, 64, 256)
+MATRIX_BUDGET_S = 0.4
+#: (c)'s hold on the global parameters, vmap against python: the port's
+#: MLP-against-reference tolerance (``tests/test_torch_fleet.py``).  On
+#: the card the per-client path's single matrix products and the vmap
+#: path's batched ones reduce in different orders (cuBLAS picks the
+#: kernels), so the CPU tests' 4-ULP hold cannot apply; the ULP distances
+#: are printed beside it.
+VMAP_ATOL = 1e-4
+
+
+def _shape_key(name: str, args) -> str:
+    if name == "topk_gather":
+        x, idx = args[:2]
+        return f"{x.shape[0]}x{x.shape[1]}->{idx.shape[1]}"
+    if name == "topk_scatter":
+        idx, _, n = args[:3]
+        return f"{idx.shape[0]}x{n}->{idx.shape[1]}"
+    if name == "dequantize":
+        return f"{args[1].shape[0]}x{args[2]}"
+    return "x".join(str(d) for d in args[0].shape)
+
+
+def _calls_by_shape():
+    """Wrap the five FL kernels' wrappers so each call is counted by its
+    shape; returns ``(counters, undo)``."""
+    import collections
+    import importlib
+    counters = {name: collections.Counter() for _, name in FL_WRAPPERS}
+    saved = []
+    for family, name in FL_WRAPPERS:
+        mod = importlib.import_module(f"repro_torch.kernels.{family}.ops")
+        fn = getattr(mod, name)
+
+        def counted(*args, _fn=fn, _name=name, **kwargs):
+            counters[_name][_shape_key(_name, args)] += 1
+            return _fn(*args, **kwargs)
+        saved.append((mod, name, fn))
+        setattr(mod, name, counted)
+
+    def undo():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return counters, undo
+
+
+def _profile_call(fn) -> dict:
+    """Wall time, device busy time and idle share of one ``fn()`` under
+    ``torch.profiler`` (device activity only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_s = sum(e.self_device_time_total for e in rows) / 1e6
+    return {"wall_s": wall, "device_busy_s": busy_s,
+            "idle_share": 1 - busy_s / wall,
+            "device_ops": sum(e.count for e in rows)}
+
+
+def _run_arm(label: str, transport: str, shapes: bool = False,
+             **arm) -> tuple[dict, dict, list[dict]]:
+    """One arm of ``fleet_sim`` on the card at full width: its horizon's
+    rounds with the launch counts zeroed just before and read just after
+    (and with ``shapes``, the five FL kernels' calls counted by shape),
+    then up to PROFILED_ROUNDS more rounds under the profiler.  Returns
+    the arm's record, what the pinned rounds left (``params``: the flat
+    global parameters; ``history``; ``batch_sizes``) and their per-round
+    records."""
+    from repro_torch import fleet_sim, kernels
+    from repro_torch.core.packetizer import flatten_to_vector
+    mode = arm.get("mode", "sync")
+    rounds = fleet_sim.rounds_for(mode)
+    build = fleet_sim.build(transport, device="cuda", **arm)
+    counters, undo = _calls_by_shape() if shapes else (None, None)
+    try:
+        kernels.reset_launch_counts()
+        records = fleet_sim.run_rounds(build, rounds)
+        launches = {k: v for k, v in kernels.launch_counts.items() if v}
+    finally:
+        if undo is not None:
+            undo()
+    left = {"params": flatten_to_vector(build.system.global_params),
+            "history": list(build.system.history),
+            "batch_sizes": (list(build.trainer.batch_sizes)
+                            if build.trainer is not None else None)}
+    walls = [r["wall_s"] for r in records[1:]]
+    extra = min(rounds, PROFILED_ROUNDS[mode])
+    prof = dict(_profile_call(lambda: build.system.run_rounds(extra)),
+                rounds=extra)
+    rec = {"rounds": rounds, "wall_s_median": statistics.median(walls),
+           "wall_s_first": walls[0], "wall_s": walls, "launches": launches,
+           "profile": prof, "loss": records[-1]["loss"]}
+    if counters is not None:
+        rec["calls_by_shape"] = {name: dict(c.most_common())
+                                 for name, c in counters.items()}
+    acc = (f", accuracy {records[-1]['accuracy']:.4f}"
+           if "accuracy" in records[-1] else "")
+    say(f"  {label}: {rounds} rounds, round wall median "
+        f"{rec['wall_s_median']:.6f} s (first {walls[0]:.6f}), loss "
+        f"{records[-1]['loss']:.6f}{acc}; launches {json.dumps(launches)}; "
+        f"profiled {prof['rounds']} more: wall {prof['wall_s']:.6f} s, "
+        f"device busy {prof['device_busy_s'] * 1e3:.3f} ms, idle share "
+        f"{prof['idle_share']:.4f} ({prof['device_ops']} device ops)")
+    return rec, left, records
+
+
+def _check_pin(label: str, view: dict, pin: dict) -> None:
+    want = {"hops": pin["hops"], "rounds": pin["rounds"]}
+    if view != want:
+        for r, (got, exp) in enumerate(zip(view["rounds"], want["rounds"])):
+            if got != exp:
+                raise AssertionError(f"{label} round {r}: {got} != pinned "
+                                     f"{exp}")
+        raise AssertionError(f"{label}: {view} != pinned {want}")
+
+
+def run_fleet_layer() -> dict:
+    """Phase 11: (a) the reference example's consensus arms bitwise against
+    their pins, (b) the MLP's adaptive hier arm against its pins through
+    the five FL kernels, (c) the vmap backend against the python one on
+    the MLP's star arm, (d) the vmap compute matrix and the learning
+    curve, (e) the topology and async gates; (f) each arm's round wall,
+    idle share and launches (printed with it)."""
+    import hashlib
+
+    import numpy as np
+    from repro_torch import fleet_gates, fleet_sim
+    from repro_torch.core.client_compute import make_model, make_train_backend
+
+    out = {"arms": {}}
+    t0 = time.perf_counter()
+    say("  (a) consensus arms (1024 parameters, static control), bitwise "
+        "against the reference's pins")
+    for (topology, mode, transport), pin in fleet_sim.PINNED_ARMS.items():
+        label = f"{transport}/{mode}/{topology}/consensus"
+        rec, left, records = _run_arm(
+            label, transport, model="consensus", control="static",
+            topology=topology, mode=mode)
+        _check_pin(label, fleet_sim.pinned_view(records), pin)
+        sha = hashlib.sha256(left["params"].tobytes()).hexdigest()
+        if sha != pin["sha256"]:
+            raise AssertionError(f"{label}: parameters {sha} != pinned "
+                                 f"{pin['sha256']}")
+        say(f"    pins hold: {len(pin['rounds'])} rounds of arrivals, late "
+            f"folds, retransmissions and hop bytes; sha256 {sha[:16]}")
+        out["arms"][label] = rec
+    out["consensus_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    say("  (b) the MLP's adaptive hier arm (mudp+fec, per-hop "
+        "delta|ef|topk(0.15)|int8(1024) up, int8(1024) down, 4 cells)")
+    rec, left, records = _run_arm(
+        "mudp+fec/sync/hier/mlp", "mudp+fec", shapes=True, model="mlp",
+        control="adaptive", topology="hier", mode="sync")
+    for r in records[1:]:
+        say(f"    round {r['round']}: arrived {r['arrived']}, late "
+            f"{r['late_folded']}, retx {r['retransmissions']}, tiers "
+            f"{json.dumps(r['tiers'])}, hop bytes "
+            f"{json.dumps(r['hop_bytes'])}, accuracy {r['accuracy']:.4f}")
+    _check_pin("hier adaptive", fleet_sim.pinned_view(records),
+               fleet_sim.PINNED_HIER_ADAPTIVE)
+    for name, by_shape in rec["calls_by_shape"].items():
+        say(f"    {name}: {rec['launches'].get(name, 0)} launches; calls by "
+            f"shape {json.dumps(by_shape)}")
+    missing = [name for _, name in FL_WRAPPERS
+               if rec["launches"].get(name, 0) <= 0]
+    if missing:
+        raise AssertionError(f"hier adaptive arm: {missing} never launched")
+    out["arms"]["mudp+fec/sync/hier/mlp"] = rec
+    out["hier_adaptive_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    say("  (c) --train-backend vmap against python: the MLP's star sync "
+        "arm over mudp, 48 clients")
+    runs = {}
+    for backend in ("python", "vmap"):
+        runs[backend] = _run_arm(
+            f"mudp/sync/star/mlp[{backend}]", "mudp", model="mlp",
+            control="static", topology="star", mode="sync",
+            train_backend=backend)
+        out["arms"][f"mudp/sync/star/mlp[{backend}]"] = runs[backend][0]
+    lp, lv = runs["python"][1], runs["vmap"][1]
+    n = fleet_sim.ROUNDS
+    for field in ("roster", "arrived", "duration_ns"):
+        if ([getattr(r, field) for r in lp["history"]]
+                != [getattr(r, field) for r in lv["history"]]):
+            raise AssertionError(f"vmap vs python: {field} differs")
+    a, v, sizes = lp["params"], lv["params"], lv["batch_sizes"]
+    diff = np.abs(a - v)
+    ulp = diff / np.spacing(np.maximum(np.abs(a), np.abs(v)))
+    norm_ulp = float(diff.max() / np.spacing(np.abs(a).max()))
+    say(f"    rosters, arrivals and duration_ns identical over {n} rounds; "
+        f"global parameters: max |python - vmap| {diff.max():.3e} "
+        f"(hold {VMAP_ATOL}), elementwise max {ulp.max():.1f} ULP "
+        f"(median {float(np.median(ulp)):.1f}), {norm_ulp:.1f} ULP of the "
+        f"largest parameter")
+    if not diff.max() <= VMAP_ATOL:
+        raise AssertionError(f"vmap vs python: max diff {diff.max()} > "
+                             f"{VMAP_ATOL}")
+    say(f"    BatchTrainer.batch_sizes {sizes}: {sum(sizes)} trainings in "
+        f"{len(sizes)} calls")
+    if not len(sizes) < sum(sizes):
+        raise AssertionError("the vmap backend did not batch")
+    out["vmap_vs_python"] = {"max_abs": float(diff.max()),
+                             "max_ulp": float(ulp.max()),
+                             "norm_ulp": norm_ulp, "batch_sizes": sizes}
+    out["vmap_vs_python_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    say(f"  (d) compute matrix ({fleet_gates.MATRIX_MODEL_ARGS}) at "
+        f"{MATRIX_CLIENTS} clients, and the full-width MLP at 256")
+    matrix = fleet_gates.compute_matrix(MATRIX_CLIENTS,
+                                        budget_s=MATRIX_BUDGET_S,
+                                        device="cuda")
+    matrix += [dict(r, full_width=True) for r in fleet_gates.compute_matrix(
+        (256,), budget_s=MATRIX_BUDGET_S, device="cuda",
+        model_args=fleet_gates.CURVE_MODEL_ARGS)]
+    for r in matrix:
+        say(f"    {r['clients']:4d} clients, {r['n_params']} params, "
+            f"{r['backend']:6s}: {r['ms_per_call']:.3f} ms a call "
+            f"({r['reps']} reps), speedup {r['speedup_vs_python']:.2f}x "
+            f"(the reference benchmark's gate: {fleet_gates.MIN_SPEEDUP}x, "
+            f"printed, not held)")
+    for args, tag in ((fleet_gates.MATRIX_MODEL_ARGS, "matrix"),
+                      (fleet_gates.CURVE_MODEL_ARGS, "full width")):
+        model = make_model("mlp", 256, seed=0, device="cuda", **args)
+        stack, ci, ri = fleet_gates.matrix_inputs(model, 256)
+        backend = make_train_backend("vmap")
+        backend.train(model, stack, ci, ri)
+        prof = _profile_call(lambda: backend.train(model, stack, ci, ri))
+        say(f"    one profiled vmap call at 256 clients ({tag}): wall "
+            f"{prof['wall_s'] * 1e3:.3f} ms, device busy "
+            f"{prof['device_busy_s'] * 1e3:.3f} ms, idle share "
+            f"{prof['idle_share']:.4f} ({prof['device_ops']} device ops)")
+        out.setdefault("vmap_call_profile", {})[tag] = prof
+    curve = fleet_gates.learning_curve(device="cuda")
+    hit = fleet_gates.rounds_to_accuracy(curve["curve"],
+                                         fleet_gates.TARGET_ACC)
+    say(f"    learning curve (16 clients, mudp, 10% loss, non-IID alpha "
+        f"0.5, vmap, {curve['data_source']} data): accuracy by round "
+        f"{[round(r['accuracy'], 4) for r in curve['curve']]}; "
+        f"{fleet_gates.TARGET_ACC} reached at round {hit}; batch sizes "
+        f"{curve['batch_sizes'][:6]}...")
+    if hit is None:
+        raise AssertionError(f"learning curve: {fleet_gates.TARGET_ACC} "
+                             f"not reached in 20 rounds")
+    out["matrix"] = matrix
+    out["curve"] = {"rounds_to_target": hit,
+                    "accuracy": [r["accuracy"] for r in curve["curve"]],
+                    "wall_s": curve["wall_s"]}
+    out["matrix_and_curve_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    say("  (e) the topology and async gates")
+    topo, fail = fleet_gates.topology_gate()
+    for key, cell in topo.items():
+        say(f"    topology/{key}: final loss {cell['final_loss']:.6f}, hop "
+            f"bytes {json.dumps(cell['hop_bytes'])}, server nodes "
+            f"{cell['server_nodes']}")
+    report, fail_async = fleet_gates.async_gate()
+    say(f"    async/sync time to 5% of L0: "
+        f"{report['time_ratio_async_over_sync']:.4f} (gate <= 0.8); sync "
+        f"{report['sync']['sim_ns_to_target']} ns, async "
+        f"{report['async']['sim_ns_to_target']} ns")
+    if fail or fail_async:
+        raise AssertionError(f"gates failed: {fail + fail_async}")
+    out["async_ratio"] = report["time_ratio_async_over_sync"]
+    out["gates_s"] = time.perf_counter() - t0
+    if not (np.isfinite(a).all() and np.isfinite(v).all()):
+        raise AssertionError("non-finite global parameters")
+    return out
+
+
 def _ptxas_lines(log: str) -> list[tuple[str, str]]:
     """(kernel, line) for each register, spill and wgmma line of an
     ``nvcc -Xptxas=-v`` log; the kernel as ``name<template args>``."""
@@ -2780,6 +3096,13 @@ def main(argv: list[str] | None = None) -> int:
     run_family_serve_cli()
     say(f"  phase 10: {time.perf_counter() - t0:.3f} s")
 
+    say("[11] the rest of the fleet layer: hier, gossip, async and the vmap "
+        "train backend, 48 clients")
+    t0 = time.perf_counter()
+    fleet_layer = run_fleet_layer()
+    fleet_layer["phase_s"] = time.perf_counter() - t0
+    say(f"  phase 11: {fleet_layer['phase_s']:.3f} s")
+
     # Each kernel's launches on its own path: slice 1's kernels on phase
     # 4's path (their count on the fleet path beside it), the top-k
     # kernels on the fleet path, checksum on the pass over its bodies,
@@ -2822,7 +3145,15 @@ def main(argv: list[str] | None = None) -> int:
         out[list(MAIN_SHAPE).index(name)].update(
             launches_lm_fl_path=counts_lmfl[name],
             launches_by_shape_lm_fl_path=by_shape_lmfl[name])
-    say(json.dumps({"lm_training": train_rec, "lm_fl": lmfl}))
+    hier_launches = fleet_layer["arms"]["mudp+fec/sync/hier/mlp"]
+    for name in ("fedavg", "quantize", "dequantize", "topk_gather",
+                 "topk_scatter"):
+        out[list(MAIN_SHAPE).index(name)].update(
+            launches_hier_adaptive=hier_launches["launches"][name],
+            calls_by_shape_hier_adaptive=hier_launches[
+                "calls_by_shape"][name])
+    say(json.dumps({"lm_training": train_rec, "lm_fl": lmfl,
+                    "fleet_layer": fleet_layer}))
     say(f"  total {time.perf_counter() - t_start:.3f} s")
     say(json.dumps({"kernels": out}))
     say(card_line())

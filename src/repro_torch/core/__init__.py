@@ -1,5 +1,5 @@
 """Host-side FL machinery of the port: wire plane, packets, simulator,
-transports, fleets and the sync orchestrator.
+transports, fleets, topologies and the sync and async orchestrators.
 
 Transports are pluggable: every protocol implements the ``Transport``
 interface (:mod:`repro_torch.core.transport`) and registers under a string
@@ -15,10 +15,11 @@ stages (:mod:`repro_torch.core.wire`) and aggregation
 (:mod:`repro_torch.core.aggregation`).
 """
 
-from repro_torch.core.aggregation import (fedavg_stack, pairwise_average,
-                                          trimmed_mean)
-from repro_torch.core.client_compute import (ClientModel, ConsensusModel,
-                                             TrainBackend, available_models,
+from repro_torch.core.aggregation import (fedavg, fedavg_stack,
+                                          pairwise_average, trimmed_mean)
+from repro_torch.core.client_compute import (BatchTrainer, ClientModel,
+                                             ConsensusModel, TrainBackend,
+                                             attach_trainer, available_models,
                                              available_train_backends,
                                              make_model, make_train_backend,
                                              register_model,
@@ -49,14 +50,17 @@ from repro_torch.core.packets import (Packet, PacketKind, make_ack_ok,
                                       make_data_packet, make_nack)
 from repro_torch.core.rounds import (FederatedSystem, FLClient, FLConfig,
                                      RoundResult)
-from repro_torch.core.scheduling import (SCHEDULERS, SyncScheduler,
-                                         make_scheduler)
+from repro_torch.core.scheduling import (SCHEDULERS, AsyncScheduler,
+                                         SyncScheduler, make_scheduler)
 from repro_torch.core.server import (ClientPool, ClientSession, ServerCore)
 from repro_torch.core.simulator import (Node, Simulator)
 from repro_torch.core.tcp import (TcpReceiver, TcpSender)
 from repro_torch.core.telemetry import (ClientHealth, Telemetry)
-from repro_torch.core.topology import (StarTopology, Topology,
-                                       available_topologies, make_topology,
+from repro_torch.core.topology import (CellScheduler, EdgeAggregator,
+                                       GossipSystem, GossipTopology,
+                                       HierSystem, HierTopology, StarTopology,
+                                       Topology, available_topologies,
+                                       make_topology, neighbor_graph,
                                        register_topology, topology_hops)
 from repro_torch.core.transport import (Delivery, Transport, TransportCaps,
                                         TransportConfig, available_transports,
@@ -74,10 +78,11 @@ from repro_torch.core.wire import (CodecStage, CrcStage, DeltaStage,
                                    stage_for_codec)
 
 __all__ = [
-    "fedavg_stack", "pairwise_average", "trimmed_mean",
-    "ClientModel", "ConsensusModel", "TrainBackend", "available_models",
-    "available_train_backends", "make_model", "make_train_backend",
-    "register_model", "register_train_backend",
+    "fedavg", "fedavg_stack", "pairwise_average", "trimmed_mean",
+    "BatchTrainer", "ClientModel", "ConsensusModel", "TrainBackend",
+    "attach_trainer", "available_models", "available_train_backends",
+    "make_model", "make_train_backend", "register_model",
+    "register_train_backend",
     "DCN_LINK", "PAPER_LINK", "WAN_LINK",
     "BernoulliLoss", "DropList", "GilbertElliott", "Link", "LossModel",
     "NoLoss", "keyed_uniform", "keyed_uniforms", "packet_key_arrays",
@@ -93,12 +98,14 @@ __all__ = [
     "unflatten_from_vector",
     "Packet", "PacketKind", "make_ack_ok", "make_data_packet", "make_nack",
     "FederatedSystem", "FLClient", "FLConfig", "RoundResult",
-    "SCHEDULERS", "SyncScheduler", "make_scheduler",
+    "SCHEDULERS", "AsyncScheduler", "SyncScheduler", "make_scheduler",
     "ClientPool", "ClientSession", "ServerCore",
     "Node", "Simulator",
     "TcpReceiver", "TcpSender",
     "ClientHealth", "Telemetry",
-    "StarTopology", "Topology", "available_topologies", "make_topology",
+    "CellScheduler", "EdgeAggregator", "GossipSystem", "GossipTopology",
+    "HierSystem", "HierTopology", "StarTopology", "Topology",
+    "available_topologies", "make_topology", "neighbor_graph",
     "register_topology", "topology_hops",
     "Delivery", "Transport", "TransportCaps", "TransportConfig",
     "available_transports", "make_transport", "register_transport",

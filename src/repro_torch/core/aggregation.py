@@ -5,12 +5,13 @@ The paper's Algorithm III / Eq. (1) is the sequential pairwise average
 implemented faithfully (``pairwise_average``), alongside the principled
 weighted FedAvg (McMahan et al., 2017) and a trimmed mean for robustness.
 
-Pairwise and trimmed mean operate on parameter trees; FedAvg runs over the
-flat update stack the orchestrator builds (:func:`fedavg_stack`, and
-:func:`weighted_sum_stack` for the delta-domain mean), and runs on the
-hand-written fedavg kernel (:mod:`repro_torch.kernels.fedavg`) by default;
-that kernel folds the clients in the same order, with the same float32
-rounding, as the numpy path, so both backends give the same bits.
+Pairwise, trimmed mean and :func:`fedavg` operate on parameter trees;
+the orchestrator's FedAvg runs over the flat update stack it builds
+(:func:`fedavg_stack`, and :func:`weighted_sum_stack` for the
+delta-domain mean).  FedAvg runs on the hand-written fedavg kernel
+(:mod:`repro_torch.kernels.fedavg`) by default; that kernel folds the
+clients in the same order, with the same float32 rounding, as the numpy
+path, so both backends give the same bits.
 """
 
 from __future__ import annotations
@@ -21,7 +22,9 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
-from repro_torch.core.packetizer import tree_map as _tree_map
+from repro_torch.core.packetizer import (flatten_to_vector,
+                                         tree_map as _tree_map,
+                                         unflatten_from_vector)
 from repro_torch.kernels.fedavg import ops as fedavg_ops
 
 FEDAVG_BACKENDS = ("numpy", "kernel")
@@ -37,6 +40,43 @@ def pairwise_average(server_tree: Any, client_tree: Any) -> Any:
         lambda s, c: (np.asarray(s, dtype=np.float32)
                       + np.asarray(c, dtype=np.float32)) / 2.0,
         server_tree, client_tree)
+
+
+def fedavg(trees: Sequence[Any], weights: Optional[Sequence[float]] = None,
+           backend: str = "kernel", *,
+           device: _device.DeviceLike | None = None) -> Any:
+    """Weighted FedAvg of parameter trees.  Weights default to uniform;
+    normally |D_k|/|D|.
+
+    ``"numpy"`` is the reference's per-leaf float32 fold (weights
+    normalized as ``w / w.sum()``, then ``acc += w_i * leaf_i`` from zero
+    in client order); ``"kernel"`` (the default) runs the same fold over
+    the flattened trees through :func:`weighted_sum_stack`, on ``device``.
+    Elementwise ops on a concatenation equal the ops on its slices, so the
+    two give the same bits.  A kernel that cannot build raises.
+    """
+    if not trees:
+        raise ValueError("fedavg of zero clients")
+    if backend not in FEDAVG_BACKENDS:
+        raise ValueError(f"unknown fedavg backend {backend!r}; "
+                         f"one of {FEDAVG_BACKENDS}")
+    if weights is None:
+        weights = [1.0] * len(trees)
+    w = np.asarray(weights, dtype=np.float32)
+    w = w / w.sum()
+    if backend == "kernel":
+        stack = np.stack([flatten_to_vector(t) for t in trees])
+        vec = weighted_sum_stack(stack, w, backend, device=device)
+        return unflatten_from_vector(vec, _tree_map(
+            lambda x: np.asarray(x, dtype=np.float32), trees[0]))
+
+    def _avg(*leaves):
+        acc = np.zeros_like(np.asarray(leaves[0], dtype=np.float32))
+        for wi, leaf in zip(w, leaves):
+            acc += wi * np.asarray(leaf, dtype=np.float32)
+        return acc
+
+    return _tree_map(_avg, *trees)
 
 
 def fedavg_stack(stack: np.ndarray,
@@ -108,3 +148,9 @@ def apply_delta(global_tree: Any, delta_tree: Any, server_lr: float = 1.0
         lambda g, d: np.asarray(g, dtype=np.float32)
         + server_lr * np.asarray(d, dtype=np.float32),
         global_tree, delta_tree)
+
+
+def tree_sub(a: Any, b: Any) -> Any:
+    return _tree_map(
+        lambda x, y: np.asarray(x, dtype=np.float32)
+        - np.asarray(y, dtype=np.float32), a, b)

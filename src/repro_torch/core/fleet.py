@@ -20,8 +20,10 @@ step: it turns the paper topology into a *scenario engine* —
   topology named by ``FleetConfig.topology``
   (``repro_torch.core.topology``): ``star`` wires the paper's
   single-server hub (one asymmetric jittered lossy :class:`Link` pair per
-  client) and returns a :class:`FederatedSystem` dispatching through
-  whatever transport the :class:`FLConfig` names.
+  client), ``hier`` adds edge aggregators between the clients and the
+  root, ``gossip`` goes serverless over a seeded peer graph.  All three
+  return a system with the same ``run_round`` / ``run_rounds`` surface,
+  dispatching through whatever transport the :class:`FLConfig` names.
 * :class:`ConsensusObjective` — a synthetic quadratic objective (each
   client pulls the model toward a private target) whose global loss is
   analytically computable, giving benchmarks a deterministic
@@ -30,14 +32,9 @@ step: it turns the paper topology into a *scenario engine* —
 Partial participation, straggler cutoffs, and the scheduling mode are
 *not* implemented here — they are first-class in
 ``repro_torch.core.rounds`` / ``repro_torch.core.scheduling``
-(``participation_fraction``, ``round_deadline_ns``, ``mode``);
-:class:`FleetConfig` simply carries the knobs.
-
-What waits for later slices of the port, and is refused by
-:class:`FleetConfig` until then: the reference's ``hier`` and ``gossip``
-topologies (with their ``cells`` / ``neighbors`` / ``edge_cohort`` /
-``cell_transport`` fields), ``mode="async"`` (with ``buffer_k``), and the
-``vmap`` / ``shard`` train backends.
+(``participation_fraction``, ``round_deadline_ns``,
+``mode="sync"|"async"``, ``buffer_k``); :class:`FleetConfig` simply
+carries the knobs.
 """
 
 from __future__ import annotations
@@ -168,8 +165,12 @@ class FleetConfig:
     participation_fraction: float = 1.0
     min_participants: int = 1
     round_deadline_ns: Optional[int] = None
-    # Scheduling policy: "sync" (round barrier), the port's one scheduler.
+    # Scheduling policy: "sync" (round barrier) or "async" (FedBuff-style
+    # buffered aggregation over overlapping sessions).  Under async,
+    # round_deadline_ns becomes the per-session watchdog and buffer_k is
+    # the aggregation trigger.
     mode: str = "sync"
+    buffer_k: int = 8
     # Batched wire plane (repro_torch.core.wire batch API): decode all arrived
     # uplink payloads in one stacked pass per aggregation and serve a
     # cached broadcast encode when the downlink pipeline is stateless.
@@ -182,10 +183,16 @@ class FleetConfig:
     uplink: Optional[str] = None        # e.g. "delta|ef|topk(0.01)|int8(1024)"
     downlink: Optional[str] = None      # e.g. "int8(1024)"
     # Topology (repro_torch.core.topology): how the fleet is wired.  "star"
-    # is the paper's single server, the port's one topology.
+    # is the paper's single server; "hier" adds `cells` edge aggregators
+    # between the clients and the root; "gossip" is serverless
+    # peer-to-peer over a seeded ~`neighbors`-regular graph.
     topology: str = "star"
-    # Per-hop wire pipeline specs, e.g. for star:
-    #   "client->server: topk(0.01)|int8(1024); server->client: int8(1024)"
+    cells: int = 4                      # hier: number of edge aggregators
+    neighbors: int = 4                  # gossip: target peer degree
+    edge_cohort: str = "fiber"          # hier: cohort band for edge<->root links
+    cell_transport: Optional[str] = None   # hier: client<->edge transport kind
+    # Per-hop wire pipeline specs, e.g. for hier:
+    #   "client->edge: topk(0.01)|int8(1024); edge->root: delta"
     # Hop names are the topology's (topology_hops(name)); mutually
     # exclusive with the uplink/downlink shorthands above.
     hops: Optional[str] = None
@@ -196,13 +203,16 @@ class FleetConfig:
     model: Optional[str] = None
     model_args: Optional[dict] = None   # forwarded to the model factory
     # How local training executes (client_compute TrainBackend registry):
-    # "python" = the per-client loop, the port's one backend.
+    # "python" = the per-client loop (bit-identical, digest-pinned);
+    # "vmap" = one torch.func.vmap call per pending batch on the device;
+    # "shard" = the vmap backend on the one card the port drives.
     train_backend: str = "python"
     # Adaptive transport control plane (repro_torch.core.control): the policy
     # consulted between transactions to renegotiate each client's wire
     # pipeline and FEC geometry from its telemetry.  "static" (default)
     # never renegotiates and is digest-pinned; "adaptive" walks the
-    # loss-driven tier ladder.  Forwarded onto FLConfig by the topology.
+    # loss-driven tier ladder.  Forwarded onto FLConfig by the topologies
+    # (star and hier; gossip has no server core, so it ignores these).
     control: str = "static"
     control_args: Optional[dict] = None
 
@@ -214,6 +224,7 @@ class FleetConfig:
         from repro_torch.core.scheduling import SCHEDULERS
         from repro_torch.core.topology import (available_topologies,
                                                topology_hops)
+        from repro_torch.core.transport import validate_transport_kind
         from repro_torch.core.wire import WireError, parse_hop_specs
         if self.n_clients < 1:
             raise ValueError("n_clients must be >= 1")
@@ -223,6 +234,26 @@ class FleetConfig:
         if self.mode not in SCHEDULERS:
             raise ValueError(f"unknown mode {self.mode!r}; one of "
                              f"{sorted(SCHEDULERS)}")
+        if self.topology == "hier":
+            if not 1 <= self.cells <= 250:
+                raise ValueError("cells must be in [1, 250] (the edge "
+                                 "address planes hold 250 aggregators)")
+            if self.cells > self.n_clients:
+                raise ValueError(f"cells ({self.cells}) cannot exceed "
+                                 f"n_clients ({self.n_clients}): an edge "
+                                 f"aggregator without a cell serves no one")
+            if self.edge_cohort not in self.cohort_specs():
+                raise ValueError(f"unknown edge_cohort {self.edge_cohort!r}; "
+                                 f"available: {sorted(self.cohort_specs())}")
+            if self.cell_transport is not None:
+                validate_transport_kind(self.cell_transport)
+        if self.topology == "gossip":
+            if self.neighbors < 1:
+                raise ValueError("gossip degree (neighbors) must be >= 1")
+            if self.neighbors >= self.n_clients:
+                raise ValueError(f"neighbors ({self.neighbors}) must be < "
+                                 f"n_clients ({self.n_clients}): a client "
+                                 f"cannot gossip with itself")
         if self.hops is not None:
             if self.uplink is not None or self.downlink is not None:
                 raise ValueError("hops= and uplink=/downlink= are two "
@@ -257,6 +288,11 @@ class FleetConfig:
 
     def cohort_specs(self) -> dict[str, CohortSpec]:
         return self.cohorts if self.cohorts is not None else COHORT_PRESETS
+
+    def cell_of(self, i: int) -> int:
+        """Cell membership of client ``i`` under hier: round-robin, so
+        every cell sees the same cohort mix in expectation."""
+        return i % self.cells
 
 
 def _client_addr(i: int) -> str:
@@ -369,8 +405,10 @@ def build_fleet(fleet: FleetConfig, global_params: Any,
     policy (participation, deadline) overrides the corresponding FLConfig
     fields so one FleetConfig means one scenario regardless of transport.
 
-    The returned ``system`` is a :class:`FederatedSystem` under ``star``
-    (``repro_torch.core.topology``).
+    The returned ``system`` is a :class:`FederatedSystem` under ``star``,
+    a ``HierSystem`` under ``hier``, a ``GossipSystem`` under ``gossip`` —
+    all with the same ``run_round`` / ``run_rounds`` / ``global_params`` /
+    ``history`` / ``on_round_end`` surface (``repro_torch.core.topology``).
     """
     from repro_torch.core.topology import make_topology
     profiles = sample_profiles(fleet)
@@ -385,29 +423,42 @@ class FleetBuild:
     """Everything :func:`build_fleet_training` wired together."""
 
     sim: Simulator
-    system: Any                      # the FederatedSystem
+    system: Any                      # Federated/Hier/GossipSystem
     profiles: list[ClientProfile]
     model: Any                       # the ClientModel instance
+    trainer: Optional[Any] = None    # BatchTrainer (None on "python")
 
 
 def build_fleet_training(fleet: FleetConfig,
                          fl_cfg: Optional[FLConfig] = None) -> FleetBuild:
-    """:func:`build_fleet` with the model wired in.
+    """:func:`build_fleet` with the model and train backend wired in.
 
     The model named by ``fleet.model`` (default ``"consensus"``) supplies
-    the global template and every client's training, one per-client
-    ``train_fn`` each (the ``"python"`` backend, the port's one).  An MLP
+    the global template and every client's training; ``fleet.train_backend
+    != "python"`` additionally attaches a
+    :class:`~repro_torch.core.client_compute.BatchTrainer` to every
+    training site, so each round's local steps run as one vmapped batch
+    on the device.  The ``"python"`` default attaches nothing — the
+    topology runs the per-client path the replay digests pin.  An MLP
     model holds its data on the package's current device
     (:mod:`repro_torch.device`).
     """
-    from repro_torch.core.client_compute import make_model
+    from repro_torch.core.client_compute import (BatchTrainer, attach_trainer,
+                                                 make_model,
+                                                 make_train_backend)
     model = make_model(fleet.model or "consensus", fleet.n_clients,
                        seed=fleet.seed, **(fleet.model_args or {}))
     sim, system, profiles = build_fleet(
         fleet, model.init_params(),
         lambda i, p: model.train_fn(i, p), fl_cfg)
+    trainer = None
+    if fleet.train_backend != "python":
+        trainer = BatchTrainer(
+            model, make_train_backend(fleet.train_backend),
+            client_index={p.addr: i for i, p in enumerate(profiles)})
+        attach_trainer(system, trainer)
     return FleetBuild(sim=sim, system=system, profiles=profiles,
-                      model=model)
+                      model=model, trainer=trainer)
 
 
 def cohort_counts(profiles: list[ClientProfile]) -> dict[str, int]:

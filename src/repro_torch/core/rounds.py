@@ -7,8 +7,9 @@ This module *binds*; everything a round does has a dedicated home:
   encode/decode with explicit degradation, the late-update staleness
   buffer, health tracking, aggregation math) and the per-client
   :class:`ClientSession` state machine;
-* **policy** — ``repro_torch.core.scheduling``: ``FLConfig.mode="sync"``,
-  the paper's Fig. 4 barrier, bit-compatible with the reference loop;
+* **policy** — ``repro_torch.core.scheduling``: ``FLConfig.mode`` picks
+  ``"sync"`` (the paper's Fig. 4 barrier, bit-compatible with the
+  reference loop) or ``"async"`` (FedBuff-style overlapping rounds);
 * **wire** — ``repro_torch.core.wire``: per-direction codec pipelines
   (``TransportConfig.uplink`` / ``downlink`` specs such as
   ``"delta|ef|int8(1024)"``), self-describing on the wire; the legacy
@@ -42,9 +43,12 @@ class FederatedSystem:
     """Server + clients + transport over one Simulator.
 
     A thin facade binding a :class:`ServerCore` (mechanics) to the
-    scheduler named by ``cfg.mode`` (policy); each ``run_round`` call is
-    one barrier round.  Rounds run their array work (aggregation, the
-    ``int8`` wire kernels) on ``device``, the package default when None.
+    scheduler named by ``cfg.mode`` (policy).  Under ``sync`` each
+    ``run_round`` call is one barrier round; under ``async`` each result is
+    one buffered aggregation and ``run_rounds(n)`` performs up to ``n`` of
+    them over continuously overlapping client sessions.  Rounds run their
+    array work (aggregation, the ``int8`` wire kernels) on ``device``, the
+    package default when None.
     """
 
     def __init__(self, sim: Simulator, server_addr: str,
@@ -69,10 +73,13 @@ class FederatedSystem:
             return self.scheduler.run_rounds(n)
 
     def add_client(self, client: FLClient) -> None:
-        """Elastic join between rounds: the sync barrier picks the client
-        up in the next round's roster (``ClientPool.active``)."""
+        """Elastic join (between rounds under sync; any time under async)."""
         self.core.pool.add(client)
         self.core.install_client_rx(client)
+        self.scheduler.on_client_added(client)
+
+    def remove_client(self, addr: str) -> None:
+        self.core.remove_client(addr)
 
     # -- state owned by the core, surfaced here for compatibility ------------
     @property

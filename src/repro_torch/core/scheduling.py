@@ -1,14 +1,25 @@
-"""Scheduling policy over the event-driven server core.
+"""Scheduling policies over the event-driven server core.
 
-:class:`SyncScheduler` (``mode="sync"``) drives
-:class:`repro_torch.core.server.ServerCore` through the paper's round
-barrier: sample a roster, broadcast, wait for every sampled client (or the
-round deadline), aggregate, repeat.  **Bit-compatible** with the
-reference's loop — same roster draws, same transaction numbering
-(round-scoped ``2r``/``2r+1``), same event order, same floats — pinned by
-the orchestrator digests.  It emits one :class:`RoundResult` per round
-into ``core.history``.  The reference's ``AsyncScheduler`` arrives in a
-later slice of the port.
+Two policies drive :class:`repro_torch.core.server.ServerCore`:
+
+* :class:`SyncScheduler` (``mode="sync"``) — the paper's round barrier:
+  sample a roster, broadcast, wait for every sampled client (or the round
+  deadline), aggregate, repeat.  **Bit-compatible** with the reference's
+  loop — same roster draws, same transaction numbering (round-scoped
+  ``2r``/``2r+1``), same event order, same floats — pinned by the
+  orchestrator digests.
+
+* :class:`AsyncScheduler` (``mode="async"``) — a FedBuff-style buffered
+  asynchronous server: every client runs its own session loop
+  (downlink -> train -> uplink -> cadence gap -> re-enter) and the server
+  aggregates whenever ``buffer_k`` updates are buffered, weighting each by
+  ``staleness_discount ** staleness`` (clamped at ``staleness_floor``),
+  where staleness counts server aggregations since the update's downlink.
+  Sessions from different virtual rounds overlap in flight, which is why
+  transaction numbering is session-scoped (``ServerCore.new_txn_pair``) and
+  the transport must declare ``caps.concurrent_txns``.
+
+Both emit one :class:`RoundResult` per aggregation into ``core.history``.
 """
 
 from __future__ import annotations
@@ -16,9 +27,9 @@ from __future__ import annotations
 import random
 from typing import Optional
 
-from repro_torch.core.server import (ARRIVED, FAILED, ClientSession,
-                                    FLClient, FLConfig, RoundResult,
-                                    ServerCore)
+from repro_torch.core.server import (ARRIVED, DOWNLINK, FAILED, TIMEOUT,
+                                     TRAINING, ClientSession, FLClient,
+                                     FLConfig, RoundResult, ServerCore)
 
 
 # --------------------------------------------------------------------------
@@ -186,6 +197,9 @@ class SyncScheduler:
             self.core.pool.record_failure(addr, self._round_idx)
             self._mark_resolved(addr)
 
+    def on_client_added(self, client: FLClient) -> None:
+        pass   # picked up by pool.active() at the next round
+
     # -- barrier --------------------------------------------------------------
     def _mark_resolved(self, addr: str) -> None:
         self._resolved.add(addr)
@@ -213,7 +227,290 @@ class SyncScheduler:
         self.core.apply_aggregation(contribs)
 
 
-SCHEDULERS = {"sync": SyncScheduler}
+# --------------------------------------------------------------------------
+# Async: FedBuff-style buffered aggregation with overlapping sessions
+# --------------------------------------------------------------------------
+class AsyncScheduler:
+    """No barrier: clients cycle at their own cadence, the server aggregates
+    every ``buffer_k`` buffered updates with staleness-discounted weights.
+
+    ``run_rounds(n)`` performs (up to) ``n`` aggregations: it enters every
+    eligible client, lets the event loop run — aggregations fire *inside*
+    the loop as the buffer fills — and stops re-entering clients once the
+    target is reached, letting in-flight sessions drain.  A final partial
+    flush folds whatever is still buffered if the calendar drained before
+    the buffer refilled (e.g. every client went unhealthy).
+
+    ``round_deadline_ns``, when set, is promoted from round level to
+    *session* level: a watchdog re-enters a client whose downlink or uplink
+    is permanently stuck (a best-effort transport that lost every packet of
+    a leg never raises a failure callback).  The stuck session's update is
+    not lost — if it arrives later it is buffered with its staleness.
+    """
+
+    mode = "async"
+
+    def __init__(self, core: ServerCore):
+        self.core = core
+        self.cfg = core.cfg
+        if not core.transport.caps.concurrent_txns:
+            raise ValueError(
+                f"transport {core.transport.name!r} does not support "
+                f"concurrent transactions per address pair "
+                f"(caps.concurrent_txns=False); async scheduling needs "
+                f"overlapping sessions")
+        core.bind(self)
+        self._agg_idx = 0
+        self._model_version = 0
+        self._target = 0
+        self._stopped = True
+        self._buffer: list[tuple[ClientSession, object, int]] = []
+        self._inflight: dict[str, ClientSession] = {}
+        self._idle: set[str] = set()       # parked: benched or stopped
+        self._client_round: dict[str, int] = {}
+        self._watchdogs: dict[int, object] = {}   # id(session) -> Timer
+        # Last timed-out session per client, kept registered so a late
+        # arrival is still ingested — bounded at one per client (opening
+        # the next one evicts the previous from the core registries).
+        self._timed_out: dict[str, ClientSession] = {}
+        self._failed_window: list[str] = []
+        self._timeouts_window = 0
+        self._stats0 = core.snapshot_stats()
+        self._retx0 = core.retx_total
+        self._decode0 = core.decode_errors
+        self._bcast0 = core.bcast_cache_hits
+        self._window_start_ns = core.sim.now_ns
+
+    # -- drivers --------------------------------------------------------------
+    def run_round(self, round_idx: Optional[int] = None) -> RoundResult:
+        if round_idx is not None:
+            raise ValueError("async mode numbers aggregations itself; "
+                             "explicit round_idx is sync-only")
+        results = self.run_rounds(1)
+        if not results:
+            raise RuntimeError(
+                "async run drained without a single aggregation "
+                "(no client could complete an upload)")
+        return results[0]
+
+    def run_rounds(self, n: int) -> list[RoundResult]:
+        core = self.core
+        hist0 = len(core.history)
+        self._target = self._agg_idx + n
+        self._stopped = False
+        self._stats0 = core.snapshot_stats()
+        self._retx0 = core.retx_total
+        self._decode0 = core.decode_errors
+        self._bcast0 = core.bcast_cache_hits
+        self._window_start_ns = core.sim.now_ns
+        for client in core.pool.active(self._agg_idx):
+            if client.addr not in self._inflight:
+                self._enter(client)
+        core.sim.run()
+        if self._agg_idx < self._target and self._buffer:
+            self._flush()    # drained early: fold the partial buffer
+        self._stopped = True
+        return core.history[hist0:]
+
+    # -- session entry / re-entry --------------------------------------------
+    def _enter(self, client: FLClient) -> None:
+        core = self.core
+        addr = client.addr
+        self._idle.discard(addr)
+        # Control step: a session entry is this client's between-transactions
+        # moment — its previous transactions' telemetry is final and nothing
+        # of its next session is in flight yet.
+        core.apply_control(addr)
+        self._client_round[addr] = self._client_round.get(addr, -1) + 1
+        txn_down, txn_up = core.new_txn_pair()
+        session = core.open_session(client, self._client_round[addr],
+                                    txn_down, txn_up,
+                                    model_version=self._model_version)
+        self._inflight[addr] = session
+        if self.cfg.round_deadline_ns is not None:
+            self._arm_watchdog(session)
+        if self.cfg.broadcast_model:
+            core.begin_downlink(session)
+        else:
+            core.begin_local(session)
+
+    def _schedule_reentry(self, client: FLClient) -> None:
+        if client.addr not in self.core.pool.clients:
+            return
+        self.core.sim.schedule(max(0, client.cadence_ns),
+                               lambda: self._reenter(client))
+
+    def _reenter(self, client: FLClient) -> None:
+        addr = client.addr
+        if addr not in self.core.pool.clients or addr in self._inflight:
+            return
+        if self._stopped or self._agg_idx >= self._target:
+            self._idle.add(addr)
+            return
+        if not self.core.pool.is_active(addr, self._agg_idx):
+            self._idle.add(addr)     # benched: re-enters after readmission
+            return
+        self._enter(client)
+
+    # -- watchdog (async session deadline) ------------------------------------
+    def _arm_watchdog(self, session: ClientSession) -> None:
+        self._watchdogs[id(session)] = self.core.sim.schedule(
+            self.cfg.round_deadline_ns, lambda: self._on_watchdog(session))
+
+    def _cancel_watchdog(self, session: ClientSession) -> None:
+        timer = self._watchdogs.pop(id(session), None)
+        if timer is not None:
+            timer.cancel()
+
+    def _on_watchdog(self, session: ClientSession) -> None:
+        self._watchdogs.pop(id(session), None)
+        if session.state in (ARRIVED, FAILED, TIMEOUT):
+            return
+        if session.state == TRAINING:
+            # The training timer always fires; the uplink will resolve,
+            # fail, or be caught by the re-armed watchdog.
+            self._arm_watchdog(session)
+            return
+        # Stuck DOWNLINK/UPLINK: a best-effort transport lost a whole leg
+        # and will never call back.  Re-enter the client; keep the session
+        # registered so a miraculous late arrival is still ingested (the
+        # previous timed-out session, if any, is evicted — at most one
+        # lingers per client, so the registries stay bounded).
+        session.state = TIMEOUT
+        addr = session.addr
+        if self._inflight.get(addr) is session:
+            del self._inflight[addr]
+        prev = self._timed_out.get(addr)
+        if prev is not None:
+            self.core.drop_session(prev)
+        self._timed_out[addr] = session
+        self._timeouts_window += 1
+        # A timeout counts against health like a transport failure:
+        # without this, a permanently dead best-effort client would cycle
+        # timeout -> cadence -> re-enter forever, keeping the calendar
+        # alive and run_rounds() from ever draining.  A merely-slow client
+        # benched this way re-enters after readmit_after_rounds
+        # aggregations — bench-as-backoff.
+        self.core.pool.record_failure(addr, self._agg_idx)
+        self._schedule_reentry(session.client)
+
+    # -- events from the core -------------------------------------------------
+    def accept_downlink(self, session: ClientSession) -> bool:
+        return session.state == DOWNLINK
+
+    def on_uplink(self, session: Optional[ClientSession], addr: str,
+                  txn: int, vec) -> None:
+        # `vec` is an opaque update token (flat vector, or a pending wire
+        # handle under cfg.batch_wire); it is buffered untouched and only
+        # decoded when _flush() hands the batch to apply_aggregation.
+        if session is None or session.state in (ARRIVED, FAILED):
+            return
+        was_timeout = session.state == TIMEOUT
+        session.state = ARRIVED
+        self._cancel_watchdog(session)
+        self.core.drop_session(session)
+        if self._inflight.get(addr) is session:
+            del self._inflight[addr]
+        if self._timed_out.get(addr) is session:
+            del self._timed_out[addr]
+        self.core.pool.record_success(addr)
+        staleness = self._model_version - session.model_version
+        self._buffer.append((session, vec, staleness))
+        if (len(self._buffer) >= self.cfg.buffer_k
+                and not self._stopped and self._agg_idx < self._target):
+            self._flush()
+        if not was_timeout:
+            # A timed-out session's client already re-entered at timeout.
+            self._schedule_reentry(session.client)
+
+    def on_session_failed(self, session: ClientSession) -> None:
+        if session.state in (ARRIVED, FAILED, TIMEOUT):
+            return
+        session.state = FAILED
+        self._cancel_watchdog(session)
+        self.core.drop_session(session)
+        addr = session.addr
+        if self._inflight.get(addr) is session:
+            del self._inflight[addr]
+        self._failed_window.append(addr)
+        self.core.pool.record_failure(addr, self._agg_idx)
+        self._schedule_reentry(session.client)
+
+    def on_client_added(self, client: FLClient) -> None:
+        # Joins mid-run enter immediately (if a run is live), else at the
+        # next run_rounds() entry scan.
+        if not self._stopped and client.addr not in self._inflight:
+            self._enter(client)
+
+    # -- aggregation ----------------------------------------------------------
+    def _flush(self) -> None:
+        core = self.core
+        contribs, stales, arrived = [], [], []
+        clamped = dropped = 0
+        for session, vec, staleness in self._buffer:
+            arrived.append(session.addr)
+            if (self.cfg.max_staleness is not None
+                    and staleness > self.cfg.max_staleness):
+                dropped += 1
+                continue
+            factor, was_clamped = core.staleness_factor(staleness)
+            clamped += was_clamped
+            contribs.append((vec, factor * session.client.weight))
+            stales.append(staleness)
+        if contribs:
+            core.apply_aggregation(contribs)
+            self._model_version += 1
+
+        now = core.sim.now_ns
+        result = RoundResult(
+            round_idx=self._agg_idx,
+            duration_ns=now - self._window_start_ns,
+            arrived=sorted(set(arrived)),
+            failed=list(self._failed_window),
+            skipped_unhealthy=core.pool.benched(self._agg_idx),
+            late_folded=sum(1 for s in stales if s >= 1),
+            retransmissions=core.retx_total - self._retx0,
+            roster=sorted(set(arrived) | set(self._inflight)),
+            staleness_clamped=clamped,
+            decode_errors=core.decode_errors - self._decode0,
+            bcast_cache_hits=core.bcast_cache_hits - self._bcast0,
+            client_health=core.telemetry.snapshot_all(),
+            metrics={
+                "model_version": self._model_version,
+                "buffer_size": len(self._buffer),
+                "staleness_mean": (sum(stales) / len(stales)
+                                   if stales else 0.0),
+                "staleness_max": max(stales, default=0),
+                "stale_dropped": dropped,
+                "session_timeouts": self._timeouts_window,
+            },
+            **core.stats_delta(self._stats0),
+        )
+        core.emit_result(result)
+
+        self._buffer = []
+        self._failed_window = []
+        self._timeouts_window = 0
+        self._stats0 = core.snapshot_stats()
+        self._retx0 = core.retx_total
+        self._decode0 = core.decode_errors
+        self._bcast0 = core.bcast_cache_hits
+        self._window_start_ns = now
+        self._agg_idx += 1
+        if self._agg_idx >= self._target:
+            self._stopped = True
+            return
+        # Opportunity scan: parked clients (benched at their cadence tick,
+        # or stopped in a previous run) whose bench expired re-enter now.
+        for addr in sorted(self._idle):
+            if (addr not in self._inflight
+                    and self.core.pool.is_active(addr, self._agg_idx)):
+                client = self.core.pool.clients.get(addr)
+                if client is not None:
+                    self._enter(client)
+
+
+SCHEDULERS = {"sync": SyncScheduler, "async": AsyncScheduler}
 
 
 def make_scheduler(mode: str, core: ServerCore):

@@ -19,8 +19,8 @@ instead of control flow:
 
 ``repro_torch.core.rounds.FederatedSystem`` is the stable facade over
 (core, scheduler); ``mode="sync"`` reproduces the reference's round loop
-bit-for-bit (the pinned orchestrator digests).  The reference's
-``mode="async"`` arrives in a later slice of the port.
+bit-for-bit (the pinned orchestrator digests), ``mode="async"`` runs
+FedBuff-style overlapping rounds.
 
 Configuration (:class:`FLConfig`), per-round accounting
 (:class:`RoundResult`), the client object (:class:`FLClient`) and the
@@ -96,8 +96,15 @@ class FLConfig:
     min_participants: int = 1
     participation_seed: int = 0
     # Scheduling policy: "sync" is the paper's round barrier (bit-compatible
-    # with the reference loop).  The reference's "async" arrives later.
+    # with the reference loop); "async" is the FedBuff-style buffered
+    # asynchronous server.
     mode: str = "sync"
+    # Async only: aggregate whenever this many updates are buffered.
+    buffer_k: int = 8
+    # Async only: drop updates staler than this many aggregations (None =
+    # keep everything, discounted).  Dropped counts surface in
+    # RoundResult.metrics["stale_dropped"].
+    max_staleness: Optional[int] = None
     # Batched wire-plane (repro_torch.core.wire batch API): uplink payloads are
     # decoded in one vectorized pass per aggregation instead of one call
     # per delivery, and a stateless downlink broadcast is encoded once per
@@ -124,6 +131,8 @@ class FLConfig:
         if self.mode not in _scheduler_registry():
             raise ValueError(f"unknown mode {self.mode!r}; one of "
                              f"{sorted(_scheduler_registry())}")
+        if self.buffer_k < 1:
+            raise ValueError("buffer_k must be >= 1")
         if self.aggregation_backend not in agg.FEDAVG_BACKENDS:
             raise ValueError(
                 f"unknown aggregation_backend {self.aggregation_backend!r}; "
@@ -225,6 +234,10 @@ class ClientPool:
             out.append(c)
         return out
 
+    def is_active(self, addr: str, round_idx: int) -> bool:
+        return (addr in self.clients
+                and self.benched_until.get(addr, -1) <= round_idx)
+
     def benched(self, round_idx: int) -> list[str]:
         return [a for a, r in self.benched_until.items() if r > round_idx]
 
@@ -232,6 +245,11 @@ class ClientPool:
         """Elastic join: the client is active from the next roster."""
         self.clients[client.addr] = client
         self.failures[client.addr] = 0
+
+    def remove(self, addr: str) -> None:
+        self.clients.pop(addr, None)
+        self.failures.pop(addr, None)
+        self.benched_until.pop(addr, None)
 
     def record_failure(self, addr: str, round_idx: int) -> None:
         self.failures[addr] = self.failures.get(addr, 0) + 1
@@ -414,6 +432,19 @@ class ServerCore:
         # Monotonic retransmission counter (sender stats folded in on
         # completion or failure); schedulers snapshot + delta per window.
         self.retx_total = 0
+        # Topology hook (repro_torch.core.topology): when set, a delivered
+        # downlink triggers this callable instead of schedule_training —
+        # the hierarchical topology uses it to run a whole edge-cell round
+        # as one "training" step of the parent tier.  The override owes the
+        # core an eventual uplink_update() on the session (or a session
+        # failure), exactly like the default path.
+        self.train_override: Optional[Callable[[ClientSession], None]] = None
+        # Optional repro_torch.core.client_compute.BatchTrainer: when
+        # attached, schedule_training submits each session's delivered
+        # model immediately and collects the (batched) result when its
+        # timer fires.  None = the per-client train_fn path, pinned by the
+        # replay digests.
+        self.batch_trainer: Optional[Any] = None
 
     def bind(self, scheduler) -> None:
         self.scheduler = scheduler
@@ -563,6 +594,21 @@ class ServerCore:
             self.sim, self.sim.node(client.addr), self.cfg.transport,
             self._make_client_deliver(client))
 
+    def remove_client(self, addr: str) -> None:
+        """Elastic removal: drop pool membership AND the client's wire
+        state — a later client at a recycled address must start with a
+        clean delta reference / EF residual, not the dead client's."""
+        self.pool.remove(addr)
+        self._up_enc_state.pop(addr, None)
+        self._down_enc_state.pop(addr, None)
+        # Control-plane identity is per-address too: telemetry history,
+        # renegotiated overrides and counters all die with the client.
+        self.telemetry.forget(addr)
+        self._uplink_over.pop(addr, None)
+        self._down_over.pop(addr, None)
+        self._cfg_over.pop(addr, None)
+        self.renegotiations.pop(addr, None)
+
     # -- session management --------------------------------------------------
     def new_txn_pair(self) -> tuple[int, int]:
         """A fresh session-scoped (txn_down, txn_up) pair.  Starts above any
@@ -586,6 +632,10 @@ class ServerCore:
         self._sessions_up[(client.addr, txn_up)] = s
         self.reserve_txns(max(txn_down, txn_up))
         return s
+
+    def drop_session(self, session: ClientSession) -> None:
+        self._sessions_down.pop((session.addr, session.txn_down), None)
+        self._sessions_up.pop((session.addr, session.txn_up), None)
 
     def clear_sessions(self) -> None:
         """Drop every session registration (sync: called at round start so
@@ -646,7 +696,7 @@ class ServerCore:
         """Skip the downlink (broadcast_model=False): hand the client the
         global model by reference and schedule training."""
         session.client.params = self.global_params
-        self.schedule_training(session)
+        self.begin_training_for(session)
 
     def _make_client_deliver(self, client: FLClient):
         def _cb(d: Delivery) -> None:
@@ -663,13 +713,41 @@ class ServerCore:
                 vec = self.decode_vec(d.reassemble(), direction="downlink",
                                       addr=client.addr)
                 client.params = unflatten_from_vector(vec, self.global_params)
-            self.schedule_training(session)
+            self.begin_training_for(session)
         return _cb
 
     # -- local training ------------------------------------------------------
+    def begin_training_for(self, session: ClientSession) -> None:
+        """A delivered (or locally handed) model starts the session's
+        training step: the default timer-driven ``train_fn`` call, or the
+        topology's ``train_override`` (e.g. a nested edge-cell round)."""
+        if self.train_override is not None:
+            self.train_override(session)
+        else:
+            self.schedule_training(session)
+
     def schedule_training(self, session: ClientSession) -> None:
         session.state = TRAINING
         client = session.client
+        if self.batch_trainer is not None:
+            # The training input is fully known *now* (the model was just
+            # delivered); only the result is deferred by the timer.  Submit
+            # immediately so the trainer can run every pending session as
+            # one vmapped batch, and collect at the timer — the result is
+            # deterministic and per-client independent, so batching cannot
+            # perturb any event time or order.
+            trainer = self.batch_trainer
+            key = id(session)
+            trainer.submit(key, client.addr, client.params,
+                           session.round_idx)
+
+            def _batched_done() -> None:
+                received, new_params, metrics = trainer.collect(key)
+                client.metrics_history.append(metrics)
+                client.params = new_params
+                self.uplink_update(session, received, new_params)
+            self.sim.schedule(client.train_time_ns, _batched_done)
+            return
 
         def _train_done() -> None:
             received = client.params
@@ -683,7 +761,8 @@ class ServerCore:
     def uplink_update(self, session: ClientSession, received: Any,
                       new_params: Any) -> None:
         """Finish a training step: prime the uplink delta reference with
-        the model the client trained *from* and ship the result."""
+        the model the client trained *from* and ship the result.  Shared by
+        the default timer path and topology train overrides."""
         pipeline = self.uplink_pipeline_for(session.addr)
         if pipeline.caps.delta_domain:
             # Prime the delta stage's reference: the model this client

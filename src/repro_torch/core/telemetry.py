@@ -152,3 +152,8 @@ class Telemetry:
         keeps exports deterministic regardless of observation order)."""
         return {addr: self.snapshot(addr)
                 for addr in sorted(self._cells)}
+
+    def forget(self, addr: str) -> None:
+        """Elastic removal: a later client at a recycled address must not
+        inherit the dead client's history."""
+        self._cells.pop(addr, None)

@@ -7,6 +7,15 @@ shards and the training step live on the model's device; only the flat
 parameter vector crosses to and from the host, because parameters travel
 over the simulated wire as bytes.
 
+:meth:`MnistMLPModel.train_batch` trains K clients at once (the ``vmap``
+and ``shard`` train backends): every row's minibatch indices are drawn on
+the host first, by the same :func:`minibatch_indices` as the per-client
+path, and cross to the device in one copy; each local step is then one
+``torch.func.vmap`` of a pure step (:func:`sgd_step`:
+``torch.func.grad_and_value`` of :func:`cross_entropy`, and the SGD
+update as a tensor expression) over the K rows, with the loop over the
+local steps outside the map.
+
 The reference draws each step's minibatch with JAX's threefry generator,
 which torch cannot reproduce.  Every draw here goes through the one
 module-level function :func:`minibatch_indices`, keyed only by
@@ -68,6 +77,15 @@ def cross_entropy(params: dict[str, torch.Tensor], x: torch.Tensor,
                   y: torch.Tensor) -> torch.Tensor:
     """Mean log-softmax cross-entropy of the batch."""
     return F.cross_entropy(forward(params, x), y)
+
+
+def sgd_step(params: dict[str, torch.Tensor], x: torch.Tensor,
+             y: torch.Tensor, lr: float
+             ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+    """One SGD step of one client, pure (``torch.func.vmap`` maps it over
+    clients): the new parameters ``w - lr * grad`` and the step's loss."""
+    grads, loss = torch.func.grad_and_value(cross_entropy)(params, x, y)
+    return {k: w - lr * grads[k] for k, w in params.items()}, loss
 
 
 class MnistMLPModel(ClientModel):
@@ -172,3 +190,39 @@ class MnistMLPModel(ClientModel):
                           for (k, w), g in zip(p.items(), grads)}
         return (convert.flatten(params, self.layout),
                 {"train_loss": loss.detach()})
+
+    def train_batch(self, stack: np.ndarray, client_idx: np.ndarray,
+                    round_idx: np.ndarray
+                    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        """:meth:`train_flat` for K clients at once: ``stack`` (K, n_params)
+        float32 rows trained ``local_steps`` SGD steps each, every step one
+        ``torch.func.vmap`` of :func:`sgd_step` over the rows.  Returns the
+        (K, n_params) result on the model's device and ``{"train_loss":
+        (K,) losses of the last step}``."""
+        dev = self.device
+        k = stack.shape[0]
+        shard_len = self._shards.shape[1]
+        picks = torch.stack([
+            torch.stack([minibatch_indices(self.seed, int(c), int(r), step,
+                                           self.batch_size, shard_len,
+                                           torch.device("cpu"))
+                         for step in range(self.local_steps)])
+            for c, r in zip(client_idx, round_idx)])
+        vec = torch.from_numpy(np.ascontiguousarray(stack, np.float32))
+        vec, picks = vec.to(dev), picks.to(dev)
+        shards = self._shards[torch.from_numpy(
+            np.asarray(client_idx, np.int64)).to(dev)]
+        params, off = {}, 0
+        for name, shape in self.layout:
+            size = int(np.prod(shape))
+            params[name] = vec[:, off:off + size].reshape(k, *shape)
+            off += size
+        step = torch.func.vmap(sgd_step, in_dims=(0, 0, 0, None))
+        loss = torch.zeros(k, device=dev)
+        for s in range(self.local_steps):
+            rows = torch.gather(shards, 1, picks[:, s])
+            params, loss = step(params, self._x[rows], self._y[rows],
+                                self.lr)
+        return (torch.cat([params[name].reshape(k, -1)
+                           for name, _ in self.layout], dim=1),
+                {"train_loss": loss})

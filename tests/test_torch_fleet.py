@@ -18,8 +18,8 @@
 * The full-width constants ``chip_smoke.py`` checks
   (``repro_torch.fleet_sim.PINNED_ADAPTIVE``) are the reference's live
   48-client, 10-round MLP run, and the port reproduces them.
-* What this slice does not serve is refused with an error naming what
-  is available.
+* What no slice serves is refused with an error naming what is
+  available, and the example's CLI runs every option on the CPU.
 """
 
 from __future__ import annotations
@@ -222,27 +222,54 @@ def test_fleet_sim_run_records_match_reference():
 
 
 # --------------------------------------------------------------------------
-# What waits for later slices
+# What no slice serves is refused; every option of the example runs
 # --------------------------------------------------------------------------
 def test_unported_configurations_are_refused():
-    with pytest.raises(ValueError, match=r"unknown topology 'hier'.*'star'"):
-        port_fleet.FleetConfig(topology="hier")
-    with pytest.raises(ValueError, match=r"unknown topology.*'star'"):
-        make_topology("gossip")
-    with pytest.raises(ValueError, match=r"unknown mode 'async'"):
-        port_fleet.FleetConfig(mode="async")
-    with pytest.raises(ValueError, match=r"unknown train backend 'vmap'"):
-        port_fleet.FleetConfig(train_backend="vmap")
+    """A name no registry holds raises with the registered names, and the
+    flow engine, which waits for a later slice, raises too."""
+    with pytest.raises(ValueError, match=r"unknown topology 'ring'.*"
+                                         r"'gossip', 'hier', 'star'"):
+        port_fleet.FleetConfig(topology="ring")
+    with pytest.raises(ValueError, match=r"unknown topology 'ring'.*"
+                                         r"'gossip', 'hier', 'star'"):
+        make_topology("ring")
+    with pytest.raises(ValueError, match=r"unknown mode 'ring'.*"
+                                         r"'async', 'sync'"):
+        port_fleet.FleetConfig(mode="ring")
+    with pytest.raises(ValueError, match=r"unknown train backend 'ring'.*"
+                                         r"'python', 'shard', 'vmap'"):
+        port_fleet.FleetConfig(train_backend="ring")
+    with pytest.raises(NotImplementedError, match="flow"):
+        port_fleet.build_fleet_training(port_fleet.FleetConfig(
+            n_clients=2, engine="flow"))
 
 
-@pytest.mark.parametrize("argv", [["--mode", "async"],
-                                  ["--topology", "hier"],
-                                  ["--train-backend", "shard"]])
+@pytest.mark.parametrize("argv", [["--topology", "ring"],
+                                  ["--mode", "ring"],
+                                  ["--train-backend", "ring"]])
 def test_fleet_sim_cli_refuses_what_waits(argv, capsys):
+    """The CLI takes the reference example's choices and refuses others."""
     with pytest.raises(SystemExit) as exc:
         fleet_sim.main(argv)
     assert exc.value.code == 2
-    assert "not ported to repro_torch yet" in capsys.readouterr().err
+    assert "invalid choice: 'ring'" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [["--mode", "async"],
+                                  ["--topology", "hier", "--mode", "sync"],
+                                  ["--train-backend", "shard", "--mode",
+                                   "sync", "--model", "mlp"]])
+def test_fleet_sim_cli_runs_every_option(argv, capsys):
+    """``--mode async``, ``--topology hier`` and ``--train-backend shard``
+    each run a round of both static arms on the CPU."""
+    fleet_sim.main(argv + ["--device", "cpu", "--rounds", "1",
+                           "--clients", "12"])
+    out = capsys.readouterr().out
+    assert out.count("round 0:") == 2             # the mudp and udp arms
+    if "shard" in argv:
+        assert "[shard] 12 client-trainings in" in out
+    if "hier" in argv:
+        assert "edge->root" in out
 
 
 def test_fleet_sim_defaults_to_the_card():
