@@ -127,9 +127,29 @@ Phases, each printed on its own lines; any failure exits non-zero:
    reaching 10% of L0) and the async gate (async time-to-target <= 0.8x
    sync).  Each arm prints (f) its round wall, its launches, and the idle
    share of a few more rounds under the profiler.
-12. A JSON line with every kernel's numbers, one with phases 8, 9 and 11's,
-   the card line again, and the result line ``{"ok": true, "device":
-   {...}}`` last.
+12. The flow engine at fleet scale (``repro_torch.fleet_scale --engine
+   flow``, in process, on the card): (a) small runs (64 clients) of every
+   transport under star, hier and gossip and one async run, each report
+   equal to the reference's (``fleet_scale.PINS``: the SHA-256 of the
+   report outside its wall-clock fields, and bytes, retransmissions,
+   arrivals and final loss per cell); (b) the deployment the reference's
+   ``benchmarks/fleet_scale.py`` names, ``--topology hier --cells 32
+   --transports mudp``, at 10,000 clients for 2 rounds and 100,000 for
+   1, each equal to its pin, with its wall, rounds per wall second and
+   wall per client, fedavg's launches (fedavg must launch, nothing else
+   may) and calls by shape, every fedavg call held bitwise against the
+   plain version and the numpy fold, and one profiled round at 10,000
+   clients (device busy time and idle share); (c) ``fleet_scale
+   --flow-gate`` at 1,024 clients, in a process of its own (a wall-clock
+   ratio, kept clear of this process's heap): flow must process at least
+   2.0x the packet events per wall second of batched (the reference's
+   floor); (d) fedavg at the (K, 2048)
+   stacks (b) launched (each run's largest, median and smallest cell, and
+   the root): device time, the bound (bytes / 3.35 TB/s) and its share,
+   the plain version's and ``w @ stack``'s device times.
+13. A JSON line with every kernel's numbers, one with phases 8, 9, 11 and
+   12's, the card line again, and the result line ``{"ok": true,
+   "device": {...}}`` last.
 
 Phase 2 also holds the flash attention and mLSTM kernels against their
 plain versions at the serving shapes and at a 1500-token prompt, in bf16
@@ -153,8 +173,8 @@ CTA, and fails on a spill.
 
 Launch counts are zeroed just before each path (phases 4, 5, the
 checksum pass of 5, the serving run of 6, of 7 and of each configuration
-of 10, the training steps of 8, the rounds of 9 and of each arm of 11)
-and read just after it, so the comparison launches of phase 2, of the ``encode_batch`` check
+of 10, the training steps of 8, the rounds of 9 and of each arm of 11,
+and each of phase 12's runs at users' scale) and read just after it, so the comparison launches of phase 2, of the ``encode_batch`` check
 and of the serving holds do not count.
 
 ``--parent DIR`` builds the top-k scatter and dequantize of a checkout from before
@@ -2929,6 +2949,214 @@ def run_fleet_layer() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 12: the flow engine at fleet scale
+# --------------------------------------------------------------------------
+#: (a) the small flow runs pinned from the reference (every transport under
+#: star, hier and gossip; one async run), (b) the deployment the
+#: reference's ``benchmarks/fleet_scale.py`` names, at 10,000 clients for 2
+#: rounds and 100,000 for 1, with one profiled round of the first.
+FLOW_SMALL = ("flow/star", "flow/hier", "flow/gossip", "flow/async")
+FLOW_SCALE = ("flow/hier32/10000", "flow/hier32/100000")
+FLOW_GATE_CLIENTS, FLOW_GATE_MIN = 1024, 2.0     # the reference's floor
+FLOW_OUT = os.path.join(HERE, "build", "fleet_scale")
+FLOW_DEVICE = "cuda"
+
+
+def _capture_fedavg():
+    """Wrap the fedavg wrapper so each call keeps its inputs and output
+    (device tensors made fresh for each call, so no copy is needed);
+    returns ``(calls, undo)``."""
+    from repro_torch.kernels.fedavg import ops as fedavg_ops
+    calls, fn = [], fedavg_ops.fedavg
+
+    def kept(stack, weights):
+        out = fn(stack, weights)
+        calls.append((stack, weights, out))
+        return out
+    fedavg_ops.fedavg = kept
+
+    def undo():
+        fedavg_ops.fedavg = fn
+    return calls, undo
+
+
+def _fleet_scale_run(label: str) -> tuple[dict, float]:
+    """``python -m repro_torch.fleet_scale`` with a pinned run's arguments
+    on the card, in process; the report must equal its pin."""
+    from repro_torch import fleet_scale
+    os.makedirs(FLOW_OUT, exist_ok=True)
+    out = os.path.join(FLOW_OUT, label.replace("/", "_") + ".json")
+    t0 = time.perf_counter()
+    rc = fleet_scale.main([*fleet_scale.PINNED_ARGV[label], "--device",
+                           FLOW_DEVICE, "--out", out])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"fleet_scale {label}: exit code {rc}")
+    with open(out) as f:
+        report = json.load(f)
+    pin = fleet_scale.PINS[label]
+    sha, summ = fleet_scale.digest(report), fleet_scale.summary(report)
+    if sha != pin["sha256"] or summ != pin["summary"]:
+        raise AssertionError(f"fleet_scale {label}: {sha} {summ} != pinned "
+                             f"{pin}")
+    return report, wall
+
+
+def _hold_fedavg_calls(label: str, calls) -> dict:
+    """Each fedavg call of a run, bitwise: its output against the plain
+    version and the numpy fold of the same stack; returns the calls'
+    (K, N) shapes with their counts."""
+    import collections
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels.fedavg import ref as fedavg_ref
+    shapes = collections.Counter()
+    for stack, w, out in calls:
+        plain = fedavg_ref.fedavg(stack, w)
+        acc = np.zeros(stack.shape[1], np.float32)
+        for wi, row in zip(w.cpu().numpy(), stack.cpu().numpy()):
+            acc += wi * row
+        if not (bits_equal(out, plain)
+                and bits_equal(out.cpu(), torch.from_numpy(acc))):
+            raise AssertionError(f"{label}: fedavg {tuple(stack.shape)} "
+                                 f"kernel != plain version / numpy fold")
+        shapes[f"{stack.shape[0]}x{stack.shape[1]}"] += 1
+    return dict(sorted(shapes.items(),
+                       key=lambda kv: -int(kv[0].split("x")[0])))
+
+
+def _time_fedavg(stack, w) -> dict:
+    """fedavg at one of the flow path's stacks: the kernel per call and on
+    the device (20 launches in one CUDA graph), its plain version and
+    ``w @ stack`` on the device, and the bound (bytes / 3.35 TB/s)."""
+    from repro_torch.kernels.fedavg import ops as fedavg_ops
+    from repro_torch.kernels.fedavg import ref as fedavg_ref
+    k, n = stack.shape
+    nbytes = 4 * k * n + 4 * k + 4 * n
+    bnd, by = bound_ms(nbytes, 2 * k * n)
+    rec = {"shape": [k, n], "bytes": nbytes, "bound_ms": bnd,
+           "bound_by": by,
+           "ms": time_ms(lambda: fedavg_ops.fedavg(stack, w)),
+           "device_ms": device_ms(lambda: fedavg_ops.fedavg(stack, w)),
+           "plain_device_ms": device_ms(
+               lambda: fedavg_ref.fedavg(stack, w), calls=2),
+           "library_device_ms": device_ms(lambda: w @ stack)}
+    rec["share_of_bound"] = bnd / rec["device_ms"]
+    say(f"    fedavg {k}x{n}: device {rec['device_ms']:.6f} ms (per call "
+        f"{rec['ms']:.6f}), bound {bnd:.6f} ms ({by}, "
+        f"{rec['share_of_bound']:.4f} of it); plain version "
+        f"{rec['plain_device_ms']:.6f} ms; w @ stack "
+        f"{rec['library_device_ms']:.6f} ms (kernel "
+        f"{rec['device_ms'] / rec['library_device_ms']:.2f}x its time)")
+    return rec
+
+
+def run_flow_fleet() -> dict:
+    """Phase 12: (a) the small flow runs of ``repro_torch.fleet_scale``
+    against the reference's pins; (b) 10,000 clients for 2 rounds and
+    100,000 for 1 under ``--engine flow --topology hier --cells 32
+    --transports mudp`` against their pins, with fedavg's launches and
+    calls by shape, every call held bitwise, and one profiled round at
+    10,000 clients; (c) the flow gate at 1,024 clients; (d) fedavg timed
+    at the (K, 2048) stacks (b) launched, beside its bound and ``w @
+    stack``."""
+    from repro_torch import fleet_scale, kernels
+    out: dict = {"pins": {}, "scale": {}}
+    t0 = time.perf_counter()
+    say("  (a) small flow runs against the reference's pins")
+    for label in FLOW_SMALL:
+        report, wall = _fleet_scale_run(label)
+        out["pins"][label] = {"wall_s": wall,
+                              "summary": fleet_scale.summary(report)}
+        say(f"    {label}: pin holds (sha256 "
+            f"{fleet_scale.PINS[label]['sha256'][:16]}), "
+            f"{json.dumps(fleet_scale.summary(report))}; {wall:.3f} s")
+    out["pins_s"] = time.perf_counter() - t0
+
+    say("  (b) --engine flow --topology hier --cells 32 --transports mudp "
+        "at users' scale")
+    captured = {}
+    for label in FLOW_SCALE:
+        calls, undo = _capture_fedavg()
+        try:
+            kernels.reset_launch_counts()
+            report, wall = _fleet_scale_run(label)
+            launches = {k: v for k, v in kernels.launch_counts.items() if v}
+        finally:
+            undo()
+        if launches.get("fedavg", 0) <= 0 or set(launches) != {"fedavg"}:
+            raise AssertionError(f"{label}: launches {launches}; fedavg "
+                                 f"must launch, and nothing else")
+        n = str(report["meta"]["clients"][0])
+        cell_wall = report["wall"][n]["mudp"]
+        scaling = report["scaling"][0]
+        by_shape = _hold_fedavg_calls(label, calls)
+        rec = {"wall_s": wall, "cell_wall_s": cell_wall["wall_s"],
+               "rounds_per_wall_sec": cell_wall["rounds_per_wall_sec"],
+               "wall_s_per_client": scaling["wall_s_per_client"],
+               "launches": launches, "calls_by_shape": by_shape,
+               "summary": fleet_scale.summary(report)}
+        say(f"    {label}: pin holds; cell wall {cell_wall['wall_s']:.3f} "
+            f"s ({wall:.3f} s with the entry point), "
+            f"{cell_wall['rounds_per_wall_sec']:.6f} rounds per wall s, "
+            f"{scaling['wall_s_per_client'] * 1e6:.3f} us wall per client; "
+            f"{json.dumps(rec['summary'])}")
+        say(f"      fedavg: {launches['fedavg']} launches, each bitwise "
+            f"against the plain version and the numpy fold; calls by shape "
+            f"{json.dumps(by_shape)}")
+        out["scale"][label] = rec
+        captured[label] = calls
+
+    args = fleet_scale.parse_args([*fleet_scale.PINNED_ARGV[FLOW_SCALE[0]],
+                                   "--device", FLOW_DEVICE])
+    prof = fleet_scale.profile(os.path.join(FLOW_OUT, "profile.json"),
+                               args, "mudp")
+    say(f"    one profiled round at 10,000 clients: wall "
+        f"{prof['wall_s']:.6f} s, device busy "
+        f"{prof['device_busy_s'] * 1e3:.3f} ms, idle share "
+        f"{prof['idle_share']:.6f} ({prof['device_events']} device "
+        f"events); device us by kernel "
+        f"{json.dumps(dict(list(prof['top_device_us'].items())[:3]))}")
+    out["profile_10000"] = {k: v for k, v in prof.items()
+                            if k != "top_device_us"}
+    out["scale_s"] = time.perf_counter() - t0 - out["pins_s"]
+
+    say(f"  (c) the flow gate at {FLOW_GATE_CLIENTS} clients, through the "
+        f"entry point in a process of its own")
+    gate_json = os.path.join(FLOW_OUT, "flow_gate.json")
+    _run_module("fleet_scale --flow-gate", [
+        "repro_torch.fleet_scale", "--engine", "flow", "--clients", "64",
+        "--rounds", "2", "--transports", "mudp", "--flow-gate",
+        "--flow-gate-clients", str(FLOW_GATE_CLIENTS), "--flow-gate-min",
+        str(FLOW_GATE_MIN), "--device", FLOW_DEVICE, "--out", gate_json])
+    with open(gate_json) as f:
+        gate = json.load(f)["flow_gate"]
+    say(f"    flow {gate['flow']['events_per_sec']:.1f} / batched "
+        f"{gate['batched']['events_per_sec']:.1f} packet events per wall s "
+        f"= {gate['ratio']:.4f}x (floor {FLOW_GATE_MIN}x; packet events "
+        f"{gate['flow']['packet_events']} / "
+        f"{gate['batched']['packet_events']})")
+    out["flow_gate"] = gate
+
+    say("  (d) fedavg at the (K, 2048) stacks of (b): each run's largest, "
+        "median and smallest cell, and the root")
+    timed = []
+    for label, calls in captured.items():
+        cells = sorted((c for c in calls if c[0].shape[0] != 32),
+                       key=lambda c: c[0].shape[0])
+        root = [c for c in calls if c[0].shape[0] == 32][:1]
+        picks = ([cells[-1], cells[len(cells) // 2], cells[0]]
+                 if cells else []) + root
+        for stack, w, _ in picks:
+            rec = _time_fedavg(stack, w)
+            timed.append(dict(rec, run=label))
+    out["fedavg"] = timed
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def _ptxas_lines(log: str) -> list[tuple[str, str]]:
     """(kernel, line) for each register, spill and wgmma line of an
     ``nvcc -Xptxas=-v`` log; the kernel as ``name<template args>``."""
@@ -3103,6 +3331,12 @@ def main(argv: list[str] | None = None) -> int:
     fleet_layer["phase_s"] = time.perf_counter() - t0
     say(f"  phase 11: {fleet_layer['phase_s']:.3f} s")
 
+    say("[12] the flow engine at fleet scale: repro_torch.fleet_scale "
+        "--engine flow, small pins, 10,000 and 100,000 clients, the flow "
+        "gate, fedavg at the path's stacks")
+    flow_fleet = run_flow_fleet()
+    say(f"  phase 12: {flow_fleet['phase_s']:.3f} s")
+
     # Each kernel's launches on its own path: slice 1's kernels on phase
     # 4's path (their count on the fleet path beside it), the top-k
     # kernels on the fleet path, checksum on the pass over its bodies,
@@ -3152,8 +3386,15 @@ def main(argv: list[str] | None = None) -> int:
             launches_hier_adaptive=hier_launches["launches"][name],
             calls_by_shape_hier_adaptive=hier_launches[
                 "calls_by_shape"][name])
+    fedavg_rec = out[list(MAIN_SHAPE).index("fedavg")]
+    fedavg_rec.update(
+        launches_flow_fleet=sum(r["launches"]["fedavg"]
+                                for r in flow_fleet["scale"].values()),
+        calls_by_shape_flow_fleet={label: r["calls_by_shape"] for label, r
+                                   in flow_fleet["scale"].items()},
+        flow_fleet_shapes=flow_fleet["fedavg"])
     say(json.dumps({"lm_training": train_rec, "lm_fl": lmfl,
-                    "fleet_layer": fleet_layer}))
+                    "fleet_layer": fleet_layer, "flow_fleet": flow_fleet}))
     say(f"  total {time.perf_counter() - t_start:.3f} s")
     say(json.dumps({"kernels": out}))
     say(card_line())

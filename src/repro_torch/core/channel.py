@@ -13,6 +13,7 @@ engines produce identical values by construction.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Iterable, Optional, Sequence
 
 import numpy as np
@@ -53,6 +54,11 @@ _M1, _M2 = 0xBF58476D1CE4E5B9, 0x94D049BB133111EB
 LOSS_STREAM = 0x10D5
 BURST_STREAM = 0x6E11
 JITTER_STREAM = 0x117E2
+# Flow-engine draws (repro_torch.core.flow): burst-level binomial loss
+# counts, stochastic rounding of expected-value recursions, missing-seq
+# selection.  Its own tag so a flow run's draws are decorrelated from the
+# per-packet streams that share the same (seed, txn, ...) key material.
+FLOW_STREAM = 0xF7011
 _NP_M1, _NP_M2 = np.uint64(_M1), np.uint64(_M2)
 _NP_S30, _NP_S27, _NP_S31 = np.uint64(30), np.uint64(27), np.uint64(31)
 _NP_S11 = np.uint64(11)
@@ -107,6 +113,67 @@ def keyed_uniform(stream: int, seed: int, pkt: Packet) -> float:
     return (h >> 11) * _INV_2_53
 
 
+def flow_uniform(stream: int, seed: int, a: int, b: int = 0, c: int = 0,
+                 d: int = 0) -> float:
+    """One keyed uniform [0, 1) draw from raw integer key material — the
+    same splitmix64 chain as :func:`keyed_uniform` without requiring a
+    :class:`Packet`.  The flow engine keys its burst-level draws on
+    ``(txn, phase, counter, attempt)`` tuples that have no packet identity.
+    """
+    h = _mix_int(_MIX_BASE ^ (stream & _MASK64))
+    h = _mix_int(h ^ (seed & _MASK64))
+    h = _mix_int(h ^ (a & _MASK64))
+    h = _mix_int(h ^ (b & _MASK64))
+    h = _mix_int(h ^ (c & _MASK64))
+    h = _mix_int(h ^ (d & _MASK64))
+    return (h >> 11) * _INV_2_53
+
+
+def keyed_binomial(n: int, p: float, u: float) -> int:
+    """Binomial(n, p) sample by CDF inversion from one uniform ``u``.
+
+    A deterministic, platform-stable walk up the pmf recurrence
+    ``pmf(k+1) = pmf(k) * (n-k) p / ((k+1)(1-p))`` — no generator state,
+    no numpy Generator (whose binomial algorithm is not guaranteed stable
+    across versions).  O(n) worst case but terminates near ``n*p`` for the
+    loss rates links model; exact for the degenerate edges.
+    """
+    if n <= 0 or p <= 0.0:
+        return 0
+    if p >= 1.0:
+        return n
+    q = 1.0 - p
+    pmf = q ** n
+    if pmf == 0.0:
+        # Underflow (huge n, large p): fall back to a normal-approximation
+        # quantile, clamped — the regime where per-k inversion is hopeless.
+        mean, sd = n * p, math.sqrt(n * p * q)
+        # Acklam-style inverse CDF is overkill; a 4-term rational
+        # approximation of the probit is plenty at these tolerances.
+        x = max(1e-12, min(1.0 - 1e-12, u))
+        t = math.sqrt(-2.0 * math.log(min(x, 1.0 - x)))
+        z = t - (2.30753 + 0.27061 * t) / (1.0 + 0.99229 * t
+                                           + 0.04481 * t * t)
+        if x < 0.5:
+            z = -z
+        return max(0, min(n, int(round(mean + sd * z))))
+    cdf, k = pmf, 0
+    ratio = p / q
+    while u >= cdf and k < n:
+        pmf *= (n - k) * ratio / (k + 1)
+        k += 1
+        cdf += pmf
+    return k
+
+
+def stochastic_round(x: float, u: float) -> int:
+    """``floor(x) + (u < frac(x))`` — integerize an expected value so the
+    mean is preserved exactly while every replay of the same key gives the
+    same integer (the flow engine's retx counts stay replayable)."""
+    base = int(x)
+    return base + (1 if u < (x - base) else 0)
+
+
 def packet_key_arrays(pkts: Sequence[Packet]
                       ) -> tuple[np.ndarray, np.ndarray, np.ndarray,
                                  np.ndarray]:
@@ -136,6 +203,17 @@ class LossModel:
     def drops(self, pkt: Packet) -> bool:  # pragma: no cover - interface
         raise NotImplementedError
 
+    def stationary_loss_p(self) -> float:
+        """The model's marginal per-payload-packet drop probability — what
+        the flow engine (``Simulator(engine="flow")``) uses for its
+        burst-level Binomial loss draws.  Models whose drops are not an
+        exchangeable per-packet event (e.g. :class:`DropList`) have no
+        meaningful stationary rate and refuse, which in turn makes the
+        flow engine refuse the link."""
+        raise NotImplementedError(
+            f"{type(self).__name__} defines no stationary loss "
+            f"probability; the flow engine cannot model this link")
+
     def drop_mask(self, pkts: Sequence[Packet], txns: np.ndarray,
                   kinds: np.ndarray, seqs: np.ndarray,
                   attempts: np.ndarray) -> np.ndarray:
@@ -155,6 +233,9 @@ class NoLoss(LossModel):
 
     def drop_mask(self, pkts, txns, kinds, seqs, attempts) -> np.ndarray:
         return np.zeros(len(pkts), bool)
+
+    def stationary_loss_p(self) -> float:
+        return 0.0
 
 
 @dataclasses.dataclass
@@ -204,6 +285,9 @@ class BernoulliLoss(LossModel):
             mask &= _payload_kind_mask(kinds)
         return mask
 
+    def stationary_loss_p(self) -> float:
+        return max(0.0, min(1.0, self.p))
+
 
 @dataclasses.dataclass
 class GilbertElliott(LossModel):
@@ -236,6 +320,13 @@ class GilbertElliott(LossModel):
         if not self.drop_control:
             mask &= _payload_kind_mask(kinds)
         return mask
+
+    def stationary_loss_p(self) -> float:
+        # This implementation is a mean-field per-packet two-state mixture
+        # (state keyed independently per packet), so the two-state closed
+        # form IS the exact marginal, not an approximation.
+        return self.p_bad * self.p_bad_loss + (1.0 - self.p_bad) \
+            * self.p_good_loss
 
 
 # --------------------------------------------------------------------------
@@ -294,6 +385,12 @@ class Link:
         u = keyed_uniforms(JITTER_STREAM, self.jitter_seed, txns, kinds,
                            seqs, attempts)
         return self.delay_ns + (u * self.jitter_ns).astype(np.int64)
+
+    def expected_propagation_ns(self) -> int:
+        """Mean propagation delay — base delay plus the expectation of the
+        uniform [0, jitter_ns) jitter.  The flow engine charges every
+        packet this mean instead of drawing per-packet jitter."""
+        return self.delay_ns + self.jitter_ns // 2
 
     def reset(self) -> None:
         self._busy_until_ns = 0

@@ -23,10 +23,6 @@ This module is deliberately built ONLY on the public transport API
 (:mod:`repro_torch.core.transport`) plus the exported MUDP state machines — it is
 the worked proof that a new protocol plugs into the FL harness, benchmarks,
 and examples without touching the orchestrator.
-
-The reference's flow-engine model of this transport (for
-``Simulator(engine="flow")``) arrives with the flow engine in a later
-slice of the port.
 """
 
 from __future__ import annotations
@@ -34,8 +30,8 @@ from __future__ import annotations
 import struct
 
 from repro_torch.core.mudp import MudpReceiver, MudpSender, _RxState
-from repro_torch.core.packets import (Packet, PacketKind, checksum32,
-                                      make_data_packet)
+from repro_torch.core.packets import (HEADER_BYTES, Packet, PacketKind,
+                                      checksum32, make_data_packet)
 from repro_torch.core.transport import (Transport, TransportCaps,
                                         adapt_full_delivery,
                                         register_transport)
@@ -288,3 +284,155 @@ class FecMudpTransport(Transport):
 
 
 register_transport("mudp+fec", FecMudpTransport)
+
+
+# --------------------------------------------------------------------------
+# Flow-engine model (Simulator(engine="flow")) — see repro_torch.core.flow
+# --------------------------------------------------------------------------
+def _fec_flow_model(ctx):
+    """Analytic MUDP+FEC transaction: per-group loss draws, exact repairs.
+
+    Per-packet losses are independent, so each parity group's loss count is
+    an independent Binomial — drawn per group, which keeps the *joint*
+    repair distribution exact: a group with exactly one loss is repaired
+    iff its parity packet arrived; two or more losses (or a lost parity)
+    fall through to the shared NACK-volley recursion.  Timing follows the
+    packet receiver: repairs land at the parity trailer's arrival, a
+    volley fires immediately when all parity arrived with gaps, and one
+    grace timer period is paid when parity is still outstanding.
+    """
+    from repro_torch.core.flow import (FlowOutcome, PH_LAST, PH_LOSS, PH_REORD,
+                                 reorder_prob, spurious_reorder_nacks)
+    from repro_torch.core.mudp import (_mudp_flow_model, flow_ack_outcome,
+                                 flow_recover, spurious_volley)
+    cfg = ctx.cfg
+    if cfg.fec_parity <= 0:
+        # No trailer on the wire: the transaction is distributionally plain
+        # MUDP (parity_groups is empty, so the packet engines send nothing
+        # extra either).  Delegate so the flow engine stays equivalent.
+        return _mudp_flow_model(ctx)
+    n = ctx.total
+    p = ctx.p
+    st = ctx.stats
+    st.data_sent += n
+    _, last_arr = ctx.fwd.occupy(ctx.sim.now_ns, ctx.sizes)
+    groups = parity_groups(n, cfg.fec_block, cfg.fec_parity)
+    g = len(groups)
+    # Per-group draws: data loss count, parity packet loss.
+    k0 = kp = m_total = 0
+    last_group = next(i for i, grp in enumerate(groups) if n in grp)
+    l_last = unrep_last = 0
+    for i, grp in enumerate(groups):
+        li = ctx.binom(len(grp), p, PH_LOSS, 100 + i)
+        pi_lost = ctx.uniform(PH_LOSS, 300 + i) < p
+        k0 += li
+        kp += 1 if pi_lost else 0
+        unrep = li if (li >= 2 or (li == 1 and pi_lost)) else 0
+        m_total += unrep
+        if i == last_group:
+            l_last, unrep_last = li, unrep
+    last_lost = l_last > 0 and (
+        ctx.uniform(PH_LAST, 0) < l_last / len(groups[last_group]))
+    last_unrepaired = last_lost and unrep_last > 0 and (
+        ctx.uniform(PH_LAST, 1) < unrep_last / l_last)
+    dropped_bytes = ((k0 - 1) * ctx.chunk + ctx.sizes[-1] if last_lost
+                     else k0 * ctx.chunk)
+    ctx.count(ctx.fwd, PacketKind.DATA, n, ctx.data_bytes, k0, dropped_bytes)
+    # Parity trailer: same FIFO link, queued behind the data flight.  Sizes
+    # come from the group geometry alone — no packets are built.
+    payload_of = {n: ctx.sizes[-1] - HEADER_BYTES}
+    chunk_payload = ctx.chunk - HEADER_BYTES
+    parity_sizes = [
+        HEADER_BYTES + _PARITY_HEAD.size + 4 * len(grp)
+        + max(payload_of.get(s, chunk_payload) for s in grp)
+        for grp in groups
+    ]
+    st.parity_sent += g
+    _, parity_arr = ctx.fwd.occupy(ctx.sim.now_ns, parity_sizes)
+    ctx.count(ctx.fwd, PacketKind.PARITY, g, sum(parity_sizes),
+              kp, kp * (sum(parity_sizes) // g))
+    premature = False
+    if not last_lost and kp == 0:
+        # Jitter can land the whole parity trailer *before* the last data
+        # packet.  The receiver's gap check runs ahead of its repair hook,
+        # so at the last-data arrival it sees "all parity in, gaps remain"
+        # and NACKs the whole gap set immediately — in-flight interiors
+        # and packets parity rebuilds a moment later included.  Gate on
+        # the trailer-first probability (bounded by the last parity
+        # packet's send gap, the binding ordering constraint).
+        trailer_gap = sum(ctx.fwd.link.serialization_ns(s)
+                          for s in parity_sizes)
+        gate = reorder_prob(ctx.fwd.link.jitter_ns, trailer_gap)
+        premature = gate > 0.0 and ctx.uniform(PH_REORD, 0) < gate
+        if premature:
+            # Duplicate wire traffic: reordered in-flight survivors plus
+            # the repairable losses (repair restores them right after the
+            # NACKs left).  Unrepairable gaps ride the same volley, but
+            # theirs is real recovery — flow_recover models it from
+            # last_arr with no grace wait.
+            m_s = spurious_reorder_nacks(ctx, trailer_gap_ns=trailer_gap,
+                                         phase_base=64)
+            m_s += k0 - m_total
+            if m_total == 0:
+                # Repair completes delivery at the same arrival, so the
+                # ACK_OK departs right behind the NACKs and the jittered
+                # reverse path decides which reaches the sender first —
+                # a NACK that loses the race is never acted on.
+                from repro_torch.core.flow import CONTROL_BYTES as CB
+                act_p = 1.0 - reorder_prob(
+                    ctx.rev.link.jitter_ns, ctx.rev.link.serialization_ns(CB))
+            else:
+                act_p = 1.0
+            spurious_volley(ctx, m_s, last_arr, act_p=act_p)
+    m = m_total - (1 if last_unrepaired else 0)
+    if last_unrepaired:
+        # Receiver stays silent until a keepalive duplicate of the last
+        # packet arrives; flow_recover models that sender-timer phase.
+        completed, t_done = flow_recover(
+            ctx, m=m, last_seen=False, t_last=last_arr,
+            timeout_ns=cfg.timeout_ns, max_retries=cfg.max_retries,
+            retain_p=p)
+    else:
+        # Last packet seen: directly, or rebuilt when its parity landed.
+        base = last_arr if not last_lost else parity_arr
+        if premature:
+            # The trailer beat the last data packet: gap check, volley and
+            # repairs all happened at the last-data arrival.
+            t0 = last_arr
+        elif m_total == 0:
+            # Delivery at the last arrival, or at the parity trailer when
+            # repairs were needed to complete.
+            t0 = base if k0 == 0 else max(base, parity_arr)
+        elif kp == 0:
+            t0 = parity_arr       # all parity in, gaps remain: NACK now
+        else:
+            # Grace while parity is outstanding: the receiver defers
+            # silently, so no control packet ever re-arms the sender
+            # keepalive — it fires first (start + timeout, before the
+            # grace timer armed at the last-data arrival) and its
+            # duplicate last packet is what triggers the volley,
+            # spending one last-packet retry on the way.
+            st.last_packet_retries += 1
+            st.retransmissions += 1
+            st.data_sent += 1
+            dup_lost = ctx.uniform(PH_LAST, 2) < p
+            last_size = ctx.sizes[-1]
+            _, t_dup = ctx.fwd.occupy(ctx.sim.now_ns + cfg.timeout_ns,
+                                      [last_size])
+            ctx.count(ctx.fwd, PacketKind.DATA, 1, last_size,
+                      1 if dup_lost else 0, last_size if dup_lost else 0)
+            # If the duplicate is lost too, the receiver's grace timer
+            # (armed at the last-data arrival) fires shortly after.
+            t0 = t_dup if not dup_lost else base + cfg.timeout_ns
+        completed, t_done = flow_recover(
+            ctx, m=m, last_seen=True, t_last=t0,
+            timeout_ns=cfg.timeout_ns, max_retries=cfg.max_retries,
+            retain_p=p)
+    if not completed:
+        return FlowOutcome(end_ns=t_done, completed=False)
+    return flow_ack_outcome(ctx, t_done)
+
+
+from repro_torch.core import flow as _flow  # noqa: E402  (registration at bottom)
+
+_flow.register_flow_model("mudp+fec", _fec_flow_model)

@@ -158,8 +158,11 @@ class FleetConfig:
     seed: int = 0
     server_addr: str = "10.0.0.1"
     # Simulator engine: "batched" (the vectorized flight engine — the fleet
-    # hot path) or "per_packet" (the event-per-packet loop; the two are
-    # bit-for-bit identical, so that choice is purely a speed knob).
+    # hot path), "per_packet" (the event-per-packet loop; the two are
+    # bit-for-bit identical, so that choice is purely a speed knob), or
+    # "flow" (the analytic tier — statistically equivalent to the packet
+    # engines, bit-identical to the reference's flow engine, and the only
+    # tier that takes 10k-100k-client fleets in minutes).
     engine: str = "batched"
     # Round policy, forwarded into FLConfig by build_fleet().
     participation_fraction: float = 1.0

@@ -352,3 +352,190 @@ class MudpReceiver:
         # server responding with (0, 0, 10.1.2.5)).
         self.node.send(make_ack_ok(self.node.addr, txn),
                        self.sim.node(dest_addr))
+
+
+# --------------------------------------------------------------------------
+# Flow-engine model (Simulator(engine="flow")) — see repro_torch.core.flow
+# --------------------------------------------------------------------------
+def flow_recover(ctx, *, m: int, last_seen: bool, t_last: int,
+                 timeout_ns: int, max_retries: int,
+                 nack_rounds: int = 0,
+                 retain_p: float | None = None) -> tuple[bool, int]:
+    """The MUDP recovery machinery as an expected-value recursion, shared by
+    the ``mudp`` and ``mudp+fec`` flow models.
+
+    ``m`` interior gaps remain at the receiver; ``last_seen`` says whether
+    the final packet (the paper's gap-reporting trigger) has arrived, and
+    ``t_last`` is when the receiver last made progress.  Mirrors the packet
+    state machines: while the last packet is unseen the receiver is silent
+    and the sender keepalive timer resends it (``last_packet_retries`` is a
+    cumulative budget — the timer fire after it hits ``max_retries`` fails
+    the transaction); once seen, each NACK volley resends the missing set,
+    with losses redrawn by seeded stochastic rounding.  Timer-armed volleys
+    are budgeted by ``max_nack_retries`` (== ``max_retries``); past that,
+    volleys are driven by keepalive duplicates of the last packet.
+
+    ``retain_p`` is the probability a lost volley retransmission still
+    needs another volley.  Plain MUDP leaves it ``None`` (every loss
+    survives); the FEC model passes its residual-loss probability, because
+    the real receiver re-runs repair on every retransmission arrival — a
+    group reduced to one missing packet is rebuilt from parity on the
+    spot, so only losses whose parity cover is also gone re-volley.
+
+    Returns ``(completed, t)`` — the receiver completion time on success,
+    the failing sender-timer expiry otherwise.
+    """
+    from repro_torch.core.flow import CONTROL_BYTES as CB
+    from repro_torch.core.flow import PH_LAST, PH_RETX
+    st = ctx.stats
+    last_size = ctx.sizes[-1]
+    fires = 0
+    while not last_seen:
+        # Receiver never saw the last packet: it stays silent, and the
+        # sender timer (armed at start, re-armed per resend) fires at
+        # start + k*timeout.
+        fires += 1
+        t_fire = ctx.sim.now_ns + fires * timeout_ns
+        if st.last_packet_retries >= max_retries:
+            return False, t_fire
+        st.last_packet_retries += 1
+        st.retransmissions += 1
+        st.data_sent += 1
+        lost = ctx.uniform(PH_LAST, fires) < ctx.p
+        _, t_arr = ctx.fwd.occupy(t_fire, [last_size])
+        ctx.count(ctx.fwd, PacketKind.DATA, 1, last_size,
+                  1 if lost else 0, last_size if lost else 0)
+        if not lost:
+            last_seen = True
+            t_last = t_arr
+    volley = 0
+    while m > 0:
+        # One volley: NACK burst back, retransmission burst forward.
+        volley += 1
+        st.nacks_received += m
+        ctx.count(ctx.rev, PacketKind.NACK, m, m * CB)
+        _, t_nack = ctx.rev.occupy(t_last, [CB] * m)
+        st.retransmissions += m
+        st.data_sent += m
+        # Loss count of the retransmission burst: the exact Binomial (an
+        # integer, replayable refinement of stochastically rounding m*p —
+        # same mean, and the correct P(another volley needed)).
+        lost = min(m, ctx.binom(m, ctx.p, PH_RETX, volley))
+        _, t_retx = ctx.fwd.occupy(t_nack, [ctx.chunk] * m)
+        ctx.count(ctx.fwd, PacketKind.DATA, m, m * ctx.chunk,
+                  lost, lost * ctx.chunk)
+        if retain_p is not None and lost:
+            # Receiver-side repair at the retransmission arrivals: only
+            # losses whose parity cover is also unavailable survive.
+            lost = ctx.binom(lost, retain_p, PH_RETX, 500 + volley)
+        if lost == 0:
+            return True, t_retx
+        m = lost
+        if nack_rounds < max_retries:
+            # Receiver nack timer, armed when the volley went out.
+            nack_rounds += 1
+            t_last = t_last + timeout_ns
+        else:
+            # NACK-timer budget spent: the sender keepalive (re-armed by
+            # the volley's NACK arrivals) resends the last packet; its
+            # duplicate arrival triggers the next volley.
+            waits = 0
+            while True:
+                waits += 1
+                t_fire = t_nack + waits * timeout_ns
+                if st.last_packet_retries >= max_retries:
+                    return False, t_fire
+                st.last_packet_retries += 1
+                st.retransmissions += 1
+                st.data_sent += 1
+                dup_lost = ctx.uniform(
+                    PH_LAST, 1000 + volley * 8 + waits) < ctx.p
+                _, t_arr = ctx.fwd.occupy(t_fire, [last_size])
+                ctx.count(ctx.fwd, PacketKind.DATA, 1, last_size,
+                          1 if dup_lost else 0, last_size if dup_lost else 0)
+                if not dup_lost:
+                    t_last = t_arr
+                    break
+    return True, t_last
+
+
+def flow_ack_outcome(ctx, t_done: int):
+    """Completion tail shared by the reliable MUDP-family models: ACK_OK
+    travels back and the sender finishes on its arrival."""
+    from repro_torch.core.flow import CONTROL_BYTES as CB
+    from repro_torch.core.flow import FlowOutcome
+    ctx.count(ctx.rev, PacketKind.ACK_OK, 1, CB)
+    _, t_ack = ctx.rev.occupy(t_done, [CB])
+    return FlowOutcome(end_ns=t_ack, completed=True, deliver_ns=t_done,
+                       packets={p.seq: p for p in ctx.packets},
+                       total=ctx.total, complete=True)
+
+
+def spurious_volley(ctx, m: int, t: int, act_p: float = 1.0) -> None:
+    """Account a reorder-triggered NACK volley: ``m`` NACKs back and the
+    acted-on subset as duplicate retransmissions forward, starting at
+    ``t``.  The originals are still in flight and complete the transaction
+    themselves, so the volley is pure wire overhead — no timing
+    consequence beyond the link occupancy it adds (shared by the ``mudp``
+    and ``mudp+fec`` models).
+
+    ``act_p`` is the probability the sender acts on one of these NACKs:
+    the completing ACK_OK races the NACKs over the same jittered reverse
+    path, and a NACK that arrives after it finds the transaction already
+    retired — wire bytes spent, no resend."""
+    if m <= 0:
+        return
+    from repro_torch.core.flow import CONTROL_BYTES as CB
+    from repro_torch.core.flow import PH_RETX
+    st = ctx.stats
+    st.nacks_received += m
+    ctx.count(ctx.rev, PacketKind.NACK, m, m * CB)
+    _, t_nack = ctx.rev.occupy(t, [CB] * m)
+    if act_p < 1.0:
+        m = ctx.binom(m, max(0.0, act_p), PH_RETX, 901)
+        if m <= 0:
+            return
+    st.retransmissions += m
+    st.data_sent += m
+    lost = min(m, ctx.binom(m, ctx.p, PH_RETX, 900))
+    ctx.fwd.occupy(t_nack, [ctx.chunk] * m)
+    ctx.count(ctx.fwd, PacketKind.DATA, m, m * ctx.chunk,
+              lost, lost * ctx.chunk)
+
+
+def _mudp_flow_model(ctx):
+    """Analytic MUDP transaction: one Binomial for the initial burst, the
+    last-packet conditional, then the volley recursion."""
+    from repro_torch.core.flow import (FlowOutcome, PH_LAST, PH_LOSS,
+                                 spurious_reorder_nacks)
+    cfg = ctx.cfg
+    n = ctx.total
+    ctx.stats.data_sent += n
+    _, last_arr = ctx.fwd.occupy(ctx.sim.now_ns, ctx.sizes)
+    k0 = ctx.binom(n, ctx.p, PH_LOSS, 0)
+    last_lost = k0 > 0 and ctx.uniform(PH_LAST, 0) < k0 / n
+    dropped_bytes = ((k0 - 1) * ctx.chunk + ctx.sizes[-1] if last_lost
+                     else k0 * ctx.chunk)
+    ctx.count(ctx.fwd, PacketKind.DATA, n, ctx.data_bytes, k0, dropped_bytes)
+    if not last_lost:
+        # Jitter reordering: in-flight interiors NACKed at last arrival.
+        # The reordered original completes delivery shortly after, so its
+        # ACK_OK chases the NACK down the reverse path with a head start
+        # of roughly the mean residual reorder excess (~ jitter/3).
+        from repro_torch.core.flow import reorder_prob
+        act_p = 1.0 - reorder_prob(ctx.rev.link.jitter_ns,
+                                   ctx.fwd.link.jitter_ns // 3)
+        spurious_volley(ctx, spurious_reorder_nacks(ctx), last_arr,
+                        act_p=act_p)
+    completed, t_done = flow_recover(
+        ctx, m=k0 - (1 if last_lost else 0), last_seen=not last_lost,
+        t_last=last_arr, timeout_ns=cfg.timeout_ns,
+        max_retries=cfg.max_retries)
+    if not completed:
+        return FlowOutcome(end_ns=t_done, completed=False)
+    return flow_ack_outcome(ctx, t_done)
+
+
+from repro_torch.core import flow as _flow  # noqa: E402  (registration at bottom)
+
+_flow.register_flow_model("mudp", _mudp_flow_model)

@@ -39,6 +39,7 @@ from repro_torch.core import aggregation as agg
 from repro_torch.core.control import available_policies, make_policy
 from repro_torch.core.packetizer import (Packetizer, flatten_to_vector, packetize,
                                    unflatten_from_vector)
+from repro_torch.core.flow import maybe_flow
 from repro_torch.core.simulator import Simulator
 from repro_torch.core.telemetry import Telemetry
 from repro_torch.core.transport import (Delivery, Transport, TransportConfig,
@@ -406,8 +407,12 @@ class ServerCore:
         self.on_round_end: Optional[Callable[[RoundResult, Any], None]] = None
 
         # Transport dispatch goes through the registry: the core has no
-        # per-protocol branches, so new transports plug in unchanged.
-        self.transport: Transport = make_transport(cfg.transport.kind)
+        # per-protocol branches, so new transports plug in unchanged.  Under
+        # the flow engine the transport is swapped for its analytic model
+        # (same name/caps surface — see repro_torch.core.flow), and each
+        # transaction still gets the client's current transport_cfg_for().
+        self.transport: Transport = maybe_flow(
+            sim, make_transport(cfg.transport.kind))
 
         # Persistent receivers.
         self._server_rx = self.transport.create_receiver(

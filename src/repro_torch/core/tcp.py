@@ -6,10 +6,6 @@ window-limited transmission (slow start + congestion avoidance + fast
 retransmit + RTO). It is intentionally a simplified Reno — enough to show the
 handshake/ACK overhead and loss-recovery latency that motivate MUDP, without
 modelling SACK or timestamps.
-
-The reference's flow-engine model of this transport (for
-``Simulator(engine="flow")``) arrives with the flow engine in a later
-slice of the port.
 """
 
 from __future__ import annotations
@@ -204,3 +200,101 @@ class TcpReceiver:
     def _ack(self, addr: str, txn: int, next_expected: int) -> None:
         self.node.send(Packet(PacketKind.ACK, next_expected, 0,
                               self.node.addr, txn), self.sim.node(addr))
+
+
+# --------------------------------------------------------------------------
+# Flow-engine model (Simulator(engine="flow")) — see repro_torch.core.flow
+# --------------------------------------------------------------------------
+def _tcp_flow_model(ctx):
+    """Analytic Reno-lite transaction: handshake RTT, then one Binomial per
+    congestion window.  Clean windows grow cwnd exactly like the packet
+    sender (slow start below ssthresh, +1/cwnd above); lossy windows repair
+    gap-by-gap — the first gap via dup-ack fast retransmit when at least
+    three arrivals can dup-ack, the rest via RTO waits with exponential
+    backoff and the cumulative-failure cap of the packet state machine.
+    Per-arrival cumulative ACK bytes are accounted so wire totals match.
+    """
+    from repro_torch.core.flow import CONTROL_BYTES as CB
+    from repro_torch.core.flow import FlowOutcome, PH_LOSS, PH_RETX
+    st = ctx.stats
+    n = ctx.total
+    p = ctx.p
+    timeout = ctx.cfg.timeout_ns
+    max_backoff = 6               # TcpSender.max_rto_backoff default
+    # Handshake (control packets: lossless under the default loss models).
+    ctx.count(ctx.fwd, PacketKind.SYN, 1, CB)
+    _, t = ctx.fwd.occupy(ctx.sim.now_ns, [CB])
+    ctx.count(ctx.rev, PacketKind.SYN_ACK, 1, CB)
+    _, t = ctx.rev.occupy(t, [CB])
+    ctx.count(ctx.fwd, PacketKind.ACK, 1, CB)
+    ctx.fwd.occupy(t, [CB])
+    base = 1
+    cwnd, ssthresh = 1.0, 64.0    # TcpSender defaults
+    window = 0
+    t_deliver = t
+    while base <= n:
+        window += 1
+        w = min(int(cwnd), n - base + 1)
+        sizes = ctx.sizes[base - 1:base - 1 + w]
+        st.data_sent += w
+        _, f_last = ctx.fwd.occupy(t, sizes)
+        lost = ctx.binom(w, p, PH_LOSS, window)
+        ctx.count(ctx.fwd, PacketKind.DATA, w, sum(sizes),
+                  lost, min(lost * ctx.chunk, sum(sizes)))
+        acks = w - lost
+        r_last = t
+        if acks:
+            # The receiver ACKs every DATA arrival (new or duplicate ack).
+            ctx.count(ctx.rev, PacketKind.ACK, acks, acks * CB)
+            _, r_last = ctx.rev.occupy(f_last, [CB] * acks)
+        if lost == 0:
+            for _ in range(w):
+                cwnd = cwnd + 1.0 if cwnd < ssthresh else cwnd + 1.0 / cwnd
+            base += w
+            t = r_last
+            t_deliver = f_last
+            continue
+        # Gap-by-gap recovery.  Reno without SACK recovers roughly one loss
+        # per RTT (fast retransmit) or per RTO; consecutive losses of the
+        # same retransmission escalate the backoff (cumulative cap -> fail).
+        t = r_last
+        for g in range(lost):
+            if g == 0 and acks >= 3:
+                wait = 0                      # three dup-acks: no timer
+                ssthresh = max(cwnd / 2.0, 2.0)
+                cwnd = ssthresh
+            else:
+                wait = timeout
+                ssthresh = max(cwnd / 2.0, 2.0)
+                cwnd = 1.0
+            attempts = 0
+            while True:
+                attempts += 1
+                if attempts > max_backoff:
+                    return FlowOutcome(end_ns=t + wait, completed=False)
+                t_fire = t + wait
+                st.retransmissions += 1
+                st.data_sent += 1
+                _, t_arr = ctx.fwd.occupy(t_fire, [ctx.chunk])
+                relost = ctx.uniform(
+                    PH_RETX, window * 1024 + g * 16 + attempts) < p
+                ctx.count(ctx.fwd, PacketKind.DATA, 1, ctx.chunk,
+                          1 if relost else 0, ctx.chunk if relost else 0)
+                if not relost:
+                    ctx.count(ctx.rev, PacketKind.ACK, 1, CB)
+                    _, t = ctx.rev.occupy(t_arr, [CB])
+                    t_deliver = t_arr
+                    break
+                wait = timeout * (2 ** attempts)
+        base += w
+    # Final cumulative ACK arrived: FIN goes out and the sender finishes.
+    ctx.count(ctx.fwd, PacketKind.FIN, 1, CB)
+    ctx.fwd.occupy(t, [CB])
+    return FlowOutcome(end_ns=t, completed=True, deliver_ns=t_deliver,
+                       packets={p_.seq: p_ for p_ in ctx.packets},
+                       total=n, complete=True)
+
+
+from repro_torch.core import flow as _flow  # noqa: E402  (registration at bottom)
+
+_flow.register_flow_model("tcp", _tcp_flow_model)

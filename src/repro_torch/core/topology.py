@@ -45,6 +45,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 
 from repro_torch import device as _device
+from repro_torch.core.flow import maybe_flow
 from repro_torch.core.packetizer import (flatten_to_vector, packetize,
                                          unflatten_from_vector)
 from repro_torch.core.rounds import FederatedSystem, FLClient, FLConfig
@@ -610,7 +611,8 @@ class GossipSystem:
         self.cfg = cfg
         self.adj = adj
         self.pipeline = pipeline
-        self.transport: Transport = make_transport(cfg.transport.kind)
+        self.transport: Transport = maybe_flow(
+            sim, make_transport(cfg.transport.kind))
         self.clients = [
             FLClient(p.addr, train_fn_factory(i, p),
                      train_time_ns=p.train_time_ns, weight=p.weight)

@@ -5,10 +5,6 @@ traditional UDP protocol and the Modified UDP protocol will be simulated").
 The receiver delivers whatever subset arrived once it sees the last packet or
 its deadline expires; missing chunks are the FL layer's problem (it zero-fills
 them, which is what silently corrupts the global model and motivates MUDP).
-
-The reference's flow-engine model of this transport (for
-``Simulator(engine="flow")``) arrives with the flow engine in a later
-slice of the port.
 """
 
 from __future__ import annotations
@@ -139,3 +135,57 @@ def reassemble_partial(packets: dict[int, Packet], total: int) -> bytes:
         else:  # unknown-length missing tail: assume a full chunk
             out.append(b"\x00" * chunk)
     return b"".join(out)
+
+
+# --------------------------------------------------------------------------
+# Flow-engine model (Simulator(engine="flow")) — see repro_torch.core.flow
+# --------------------------------------------------------------------------
+def _udp_flow_model(ctx):
+    """Analytic fire-and-forget transaction: one Binomial picks the loss
+    count, a keyed subset picks *which* sequences vanished (the zero-filled
+    gaps feed the FL layer), and the receiver delivers at the last arrival
+    — or at the deadline armed by the first surviving packet when the final
+    packet never shows."""
+    from repro_torch.core.flow import FlowOutcome, PH_LOSS, PH_REORD, reorder_prob
+    n = ctx.total
+    ctx.stats.data_sent += n
+    first_arr, last_arr = ctx.fwd.occupy(ctx.sim.now_ns, ctx.sizes)
+    k = ctx.binom(n, ctx.p, PH_LOSS, 0)
+    missing = ctx.pick_missing(k)
+    dropped_bytes = sum(ctx.sizes[s - 1] for s in missing)
+    ctx.count(ctx.fwd, PacketKind.DATA, n, ctx.data_bytes, k, dropped_bytes)
+    now = ctx.sim.now_ns   # sender is done the moment the burst is queued
+    if k >= n:
+        return FlowOutcome(end_ns=now, completed=True)   # silence: no rx
+    pkts = {p.seq: p for p in ctx.packets if p.seq not in missing}
+    if n in missing:
+        # Deadline timer armed by the first surviving arrival.  By the
+        # time it fires every surviving packet is long in, so the delivery
+        # holds all of them.
+        s0 = min(pkts)
+        ser = ctx.fwd.link.serialization_ns(ctx.chunk)
+        t_del = first_arr + (s0 - 1) * ser + ctx.cfg.udp_deadline_ns
+    else:
+        t_del = last_arr
+        # Delivery fires the instant the last packet lands, and jitter can
+        # push an earlier packet *past* it: that packet misses the
+        # delivery (its payload zero-fills) and its later arrival is a
+        # consumed late duplicate.  Pairwise overtake probability per
+        # surviving seq, exactly the spurious-NACK geometry of the mudp
+        # flow model.
+        jit = ctx.fwd.link.jitter_ns
+        if jit > 0 and n >= 2:
+            ser = ctx.fwd.link.serialization_ns(ctx.chunk)
+            for i in range(1, n):
+                if i in missing:
+                    continue
+                r = reorder_prob(jit, (n - i) * ser)
+                if r > 0.0 and ctx.uniform(PH_REORD, i) < r:
+                    del pkts[i]
+    return FlowOutcome(end_ns=now, completed=True, deliver_ns=t_del,
+                       packets=pkts, total=n, complete=len(pkts) == n)
+
+
+from repro_torch.core import flow as _flow  # noqa: E402  (registration at bottom)
+
+_flow.register_flow_model("udp", _udp_flow_model)

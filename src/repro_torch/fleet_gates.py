@@ -23,9 +23,13 @@ report with a list of gate failures (empty when every gate holds):
   within 20 rounds.  The MNIST is the seeded synthetic set unless a
   local IDX directory is given; nothing is downloaded.
 
-Everything runs on ``device`` (default: ``cuda``):
+Everything runs on ``device`` (default: ``cuda``); ``--engine`` picks
+the simulator engine of the topology and async gates (``flow``: the
+analytic engine of :mod:`repro_torch.core.flow`):
 
     PYTHONPATH=src python -m repro_torch.fleet_gates --device cpu --check
+    PYTHONPATH=src python -m repro_torch.fleet_gates --device cpu \
+        --only topology,async --engine flow
 """
 
 from __future__ import annotations
@@ -347,6 +351,10 @@ def main(argv=None) -> int:
     ap.add_argument("--data-dir", default=None,
                     help="a local MNIST IDX directory for the curve "
                          "(default: the seeded synthetic set)")
+    ap.add_argument("--engine", default="batched",
+                    choices=["batched", "per_packet", "flow"],
+                    help="simulator engine of the topology and async "
+                         "gates (flow: the analytic engine)")
     ap.add_argument("--check", action="store_true",
                     help="exit 1 unless the held gates pass (the 5x "
                          "speedup is printed, not held)")
@@ -355,7 +363,7 @@ def main(argv=None) -> int:
     failures: list[str] = []
     with _device.use_device(_device.resolve(args.device)):
         if "topology" in only:
-            results, fail = topology_gate()
+            results, fail = topology_gate(engine=args.engine)
             for key, cell in results.items():
                 root = (cell["hop_bytes"].get("edge->root")
                         or cell["hop_bytes"].get("client->server")
@@ -365,7 +373,7 @@ def main(argv=None) -> int:
                       f"server_nodes={cell['server_nodes']}")
             failures += fail
         if "async" in only:
-            report, fail = async_gate()
+            report, fail = async_gate(engine=args.engine)
             for mode in ("sync", "async"):
                 cell = report[mode]
                 print(f"{mode:>5}: L0={cell['initial_loss']:.3f} -> target "

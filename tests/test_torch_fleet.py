@@ -225,8 +225,9 @@ def test_fleet_sim_run_records_match_reference():
 # What no slice serves is refused; every option of the example runs
 # --------------------------------------------------------------------------
 def test_unported_configurations_are_refused():
-    """A name no registry holds raises with the registered names, and the
-    flow engine, which waits for a later slice, raises too."""
+    """A name no registry holds raises with the registered names; the
+    flow engine, refused until its slice was ported, builds and runs a
+    trained fleet as the reference does."""
     with pytest.raises(ValueError, match=r"unknown topology 'ring'.*"
                                          r"'gossip', 'hier', 'star'"):
         port_fleet.FleetConfig(topology="ring")
@@ -239,9 +240,19 @@ def test_unported_configurations_are_refused():
     with pytest.raises(ValueError, match=r"unknown train backend 'ring'.*"
                                          r"'python', 'shard', 'vmap'"):
         port_fleet.FleetConfig(train_backend="ring")
-    with pytest.raises(NotImplementedError, match="flow"):
-        port_fleet.build_fleet_training(port_fleet.FleetConfig(
-            n_clients=2, engine="flow"))
+    def flow_run(fleet_mod, rounds_mod, backend):
+        build = fleet_mod.build_fleet_training(
+            fleet_mod.FleetConfig(n_clients=6, seed=3, engine="flow",
+                                  model="consensus",
+                                  model_args={"n_params": 64}),
+            rounds_mod.FLConfig(aggregation_backend=backend))
+        results = build.system.run_rounds(2)
+        return ([dataclasses.asdict(r) for r in results],
+                dict(build.sim.stats),
+                np.asarray(build.system.global_params["w"]).tobytes())
+    got = flow_run(port_fleet, port_rounds, "kernel")
+    assert got == flow_run(ref_fleet, ref_rounds, "numpy")
+    assert len(got[0]) == 2 and got[1]["packets_sent"] > 0
 
 
 @pytest.mark.parametrize("argv", [["--topology", "ring"],

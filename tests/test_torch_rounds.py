@@ -42,8 +42,16 @@ def test_replay_constants_are_the_reference_pins():
 
 
 def test_slice_registers_every_transport_and_refuses_flow():
+    """Every transport is registered, the digests run the two packet
+    engines, and the flow engine (once refused, ported since) is a third
+    engine that wraps each registered transport in its analytic model."""
+    from repro_torch.core.flow import FlowTransport, maybe_flow
+    from repro_torch.core.simulator import ENGINES
     assert port_transport.available_transports() == ["mudp", "mudp+fec",
                                                      "tcp", "udp"]
     assert PACKET_ENGINES == ("per_packet", "batched")
-    with pytest.raises(NotImplementedError, match="flow"):
-        Simulator(engine="flow")
+    assert ENGINES == PACKET_ENGINES + ("flow",)
+    sim = Simulator(engine="flow")
+    for kind in port_transport.available_transports():
+        wrapped = maybe_flow(sim, port_transport.make_transport(kind))
+        assert isinstance(wrapped, FlowTransport) and wrapped.name == kind

@@ -306,13 +306,28 @@ def test_gossip_rejects_delta_pipelines():
 
 
 def test_gossip_refuses_the_flow_engine():
-    obj = ConsensusObjective(8, 16, seed=0)
-    fleet = FleetConfig(n_clients=8, topology="gossip", neighbors=2,
-                        engine="flow")
-    with pytest.raises(NotImplementedError, match="flow"):
-        build_fleet(fleet, obj.init_params(),
-                    lambda i, p: obj.train_fn(i, p),
-                    FLConfig(transport=TransportConfig(kind="mudp")))
+    """Gossip refused the flow engine until its slice was ported; now its
+    peer exchange runs through the analytic transport models, bitwise as
+    the reference's gossip does."""
+    from repro.core import fleet as ref_fleet
+    from repro.core import rounds as ref_rounds
+    from repro_torch.core import fleet as port_fleet
+    from repro_torch.core import rounds as port_rounds
+
+    def run(fleet_mod, rounds_mod):
+        obj = fleet_mod.ConsensusObjective(8, 16, seed=0)
+        fleet = fleet_mod.FleetConfig(n_clients=8, topology="gossip",
+                                      neighbors=2, engine="flow")
+        sim, system, _ = fleet_mod.build_fleet(
+            fleet, obj.init_params(), lambda i, p: obj.train_fn(i, p),
+            rounds_mod.FLConfig(transport=rounds_mod.TransportConfig(
+                kind="mudp")))
+        results = system.run_rounds(2)
+        return (records(results), dict(sim.stats), dict(sim.hop_bytes),
+                np.asarray(system.global_params["w"]).tobytes())
+    got = run(port_fleet, port_rounds)
+    assert got == run(ref_fleet, ref_rounds)
+    assert got[2]["peer->peer"] > 0
 
 
 # --------------------------------------------------------------------------
