@@ -145,8 +145,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
    2.0x the packet events per wall second of batched (the reference's
    floor); (d) fedavg at the (K, 2048)
    stacks (b) launched (each run's largest, median and smallest cell, and
-   the root): device time, the bound (bytes / 3.35 TB/s) and its share,
-   the plain version's and ``w @ stack``'s device times.
+   the root): its route, device time, the bound (bytes / 3.35 TB/s) and
+   its share, the plain version's and ``w @ stack``'s device times, and
+   under ``--parent`` the replaced kernel's.
 13. A JSON line with every kernel's numbers, one with phases 8, 9, 11 and
    12's, the card line again, and the result line ``{"ok": true,
    "device": {...}}`` last.
@@ -177,9 +178,19 @@ of 10, the training steps of 8, the rounds of 9 and of each arm of 11,
 and each of phase 12's runs at users' scale) and read just after it, so the comparison launches of phase 2, of the ``encode_batch`` check
 and of the serving holds do not count.
 
-``--parent DIR`` builds the top-k scatter and dequantize of a checkout from before
-their redesign and times each just before and just after this one at
-every phase-2 shape, on the same card.
+``--parent DIR`` builds the top-k scatter, dequantize and fedavg of a
+checkout from before their redesign (``DIR/src/repro_torch/kernels``;
+each family whose source differs from this checkout's) and times each
+just before and just after this one at every phase-2 shape, and fedavg
+also at phase 12(d)'s stacks, on the same card.
+
+fedavg (redesigned for tall, narrow stacks) is held at more shapes in
+phase 2: the path's, the flow fleets' cells and root, a 60,000-client
+fold, strides off the 16-byte grid and the first N of each route, tile
+and stage size of ``ops.plan`` (FEDAVG_SHAPES), each line naming its
+route, plus its edge cases; phase 1 prints each of its 19 kernels'
+ptxas registers, spills and static shared memory and fails on a spill;
+phase 12(d) names the route at each stack.
 
 It exits non-zero with no result when CUDA is unavailable.
 """
@@ -207,6 +218,28 @@ BLOCK = 1024
 SHAPES = {"fedavg": {"batch": (SLICE_K, SLICE_N), "large": (16, 1 << 24)},
           "quantize": {"client": (1, SLICE_N), "batch": (SLICE_K, SLICE_N),
                        "large": (64, 1 << 20)}}
+# fedavg beyond those two: the MLP's hier cells (phase 11), the flow
+# fleets' cells and root (phase 12), a 60,000-client fold (a 100,000-client
+# star flow fleet at participation 0.6), strides off the 16-byte grid, and
+# the first N of each tall tile of ``ops.plan`` (8, 16, 32, 64, 128 columns
+# a CTA) by tma and cp_async, at 64 clients (4 KB stages) and 600 (8 KB),
+# then the last tall N and the first wide one.  Each is held bitwise and
+# timed with its route printed.
+FEDAVG_SHAPES = {
+    "hier_cell": (12, SLICE_N), "flow_root": (32, 2048),
+    "flow_10k": (188, 2048), "flow_100k": (1875, 2048),
+    "unaligned": (190, 2050), "unaligned_tall": (1875, 2050),
+    "k60000": (60_000, 2048),
+    **{f"{route}{c}_{k}": (k, n + (route == "cp"))
+       for c, n in ((16, 2100), (32, 4196), (64, 8388))
+       for route in ("tma", "cp") for k in (64, 600)},
+    "tma128": (600, 16_772), "cp128": (600, 16_773),
+    "tall_last": (64, 67_580), "wide_first": (64, 67_584)}
+#: beyond this many clients the plain version (two launches a client) is
+#: held once and timed on the device in graphs of 2 calls, not 20
+FEDAVG_PLAIN_DEEP = 200
+#: and beyond this, held once and not timed
+FEDAVG_PLAIN_UNTIMED = 10_000
 # The adaptive path's top-k shapes, (rows, dense width, kept): one
 # client's row at each tier of the ladder (topk(0.4), (0.15), (0.04) of
 # 25,450), which every client's encode gathers and its EF residual decode
@@ -489,43 +522,62 @@ def bound_ms(nbytes: int, flops: int,
 # Phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
 class ParentKernels:
-    """The top-k scatter and dequantize launchers of a checkout from before
-    their redesign (``--parent DIR``), built with the port's flags into
-    ``build/torch_kernels/parent-*.so``, so that phase 2 times each beside
-    the kernel that replaced it, in turns, in one run.  Their C interface
-    is that checkout's: ``topk_scatter_f32(idx, vals, out, rows, K, n, err,
-    stream)`` and ``dequantize_i8_f32(q, scales, out, rows, n, nb, block,
-    stream)``."""
+    """The top-k scatter, dequantize and fedavg launchers of a checkout from
+    before their redesign (``--parent DIR``), built with the port's flags
+    into ``build/torch_kernels/parent-*.so``, so that phases 2 and 12(d)
+    time each beside the kernel that replaced it, in turns, in one run.
+    Their C interface is that checkout's: ``topk_scatter_f32(idx, vals,
+    out, rows, K, n, err, stream)``, ``dequantize_i8_f32(q, scales, out,
+    rows, n, nb, block, stream)`` and ``fedavg_f32(x, w, out, K, N,
+    stream)``.  A family whose source this checkout still has unchanged
+    replaced nothing: it is not built, and ``has`` says so."""
 
-    FAMILIES = ("topk", "quantize")
+    FAMILIES = ("topk", "quantize", "fedavg")
 
     def __init__(self, root: str):
         from repro_torch.kernels import _build
         kdir = os.path.join(os.path.abspath(root), "src", "repro_torch",
                             "kernels")
+
+        def source(base, f):
+            with open(os.path.join(base, _build.SOURCES[f]), "rb") as fh:
+                return fh.read()
+        self.families = tuple(f for f in self.FAMILIES if source(kdir, f)
+                              != source(_build._PKG, f))
         _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         self.libs = {f: _build.BUILD_DIR / f"parent-{f}.so"
-                     for f in self.FAMILIES}
+                     for f in self.families}
         self.procs = [subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{kdir}/csrc", "-o",
              str(self.libs[f]), os.path.join(kdir, _build.SOURCES[f])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-            for f in self.FAMILIES]
+            for f in self.families]
+
+    def has(self, family: str) -> bool:
+        return family in self.families
 
     def load(self) -> None:
-        """Wait for the two builds (started in __init__) and load them."""
+        """Wait for the builds (started in __init__) and load them."""
         import ctypes
-        for f, proc in zip(self.FAMILIES, self.procs):
+        for f, proc in zip(self.families, self.procs):
             log = proc.communicate()[0].decode(errors="replace")
             if proc.returncode:
                 raise AssertionError(f"parent {f} build failed:\n{log}")
-        ptr, ll = ctypes.c_void_p, ctypes.c_longlong
-        self.topk = ctypes.CDLL(str(self.libs["topk"]))
-        self.topk.topk_scatter_f32.argtypes = [ptr, ptr, ptr, ll, ll, ll,
-                                               ptr, ptr]
-        self.quant = ctypes.CDLL(str(self.libs["quantize"]))
-        self.quant.dequantize_i8_f32.argtypes = [
-            ptr, ptr, ptr, ll, ll, ctypes.c_int, ctypes.c_int, ptr]
+        ptr, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        argtypes = {
+            "topk": ("topk_scatter_f32", [ptr, ptr, ptr, ll, ll, ll, ptr,
+                                          ptr]),
+            "quantize": ("dequantize_i8_f32", [ptr, ptr, ptr, ll, ll, i32,
+                                               i32, ptr]),
+            "fedavg": ("fedavg_f32", [ptr, ptr, ptr, i32, ll, ptr])}
+        self.fns = {}
+        for f in self.families:
+            name, types = argtypes[f]
+            fn = getattr(ctypes.CDLL(str(self.libs[f])), name)
+            fn.argtypes, fn.restype = types, i32
+            self.fns[f] = fn
+        say(f"  parent kernels built from {self.families or 'no family'} "
+            f"(the others' sources are unchanged)")
 
     @staticmethod
     def _stream(t) -> int:
@@ -534,15 +586,22 @@ class ParentKernels:
 
     def scatter(self, idx, vals, out, err) -> None:
         rows, k = idx.shape
-        rc = self.topk.topk_scatter_f32(
+        rc = self.fns["topk"](
             idx.data_ptr(), vals.data_ptr(), out.data_ptr(), rows, k,
             out.shape[1], err.data_ptr(), self._stream(idx))
         if rc:
             raise AssertionError(f"parent topk_scatter_f32: cudaError {rc}")
 
+    def fedavg(self, stack, w, out) -> None:
+        k, n = stack.shape
+        rc = self.fns["fedavg"](stack.data_ptr(), w.data_ptr(),
+                                out.data_ptr(), k, n, self._stream(stack))
+        if rc:
+            raise AssertionError(f"parent fedavg_f32: cudaError {rc}")
+
     def dequantize(self, q, scales, out, block) -> None:
         rows, nb = scales.shape
-        rc = self.quant.dequantize_i8_f32(
+        rc = self.fns["quantize"](
             q.data_ptr(), scales.data_ptr(), out.data_ptr(), rows,
             out.shape[1], nb, block, self._stream(q))
         if rc:
@@ -550,17 +609,14 @@ class ParentKernels:
 
 
 def check_kernels(parent: ParentKernels | None = None):
-    import numpy as np
     import torch
-    from repro_torch.kernels.fedavg import ops as fedavg_ops
-    from repro_torch.kernels.fedavg import ref as fedavg_ref
 
     dev = torch.device("cuda")
     rows: dict[str, dict[str, dict]] = {}   # name -> shape name -> rec
 
     def record(name, key, shape, nbytes, flops, kernel_fn, plain_fn, lib_fn,
                err, launch_fn=None, peak_flops=PEAK_F32_FLOPS,
-               parent_fn=None, lib_in_graph=True):
+               parent_fn=None, lib_in_graph=True, plain_calls=20):
         """Time the kernel, its plain version and the library call (if
         any) both ways: per call (host launch included) and on the device
         alone; keep the numbers under rows[name][key].  ``launch_fn``,
@@ -570,7 +626,8 @@ def check_kernels(parent: ParentKernels | None = None):
         where given, is the launch it replaced (``--parent``): its device
         time is taken just before and just after the others'.  A library
         call that a CUDA graph cannot capture (``lib_in_graph=False``) is
-        timed on the device by ``device_ms_events``."""
+        timed on the device by ``device_ms_events``; the plain version's
+        graph holds ``plain_calls`` calls."""
         bnd, by = bound_ms(nbytes, flops, peak_flops)
         n = max(1, nbytes // 2)
         src = torch.empty(n, dtype=torch.uint8, device=dev)
@@ -579,8 +636,14 @@ def check_kernels(parent: ParentKernels | None = None):
                "copy_ms": lambda: dst.copy_(src)}
         per_call = {k: time_ms(f) if f else None for k, f in fns.items()}
         parent = [device_ms(parent_fn)] if parent_fn else []
-        on_dev = {k: (device_ms_events if k == "library_ms"
-                      and not lib_in_graph else device_ms)(f) if f else None
+
+        def on_device(k, f):
+            if f is None:
+                return None
+            if k == "library_ms" and not lib_in_graph:
+                return device_ms_events(f)
+            return device_ms(f, plain_calls if k == "plain_ms" else 20)
+        on_dev = {k: on_device(k, f)
                   for k, f in dict(fns, ms=launch_fn or kernel_fn).items()}
         if parent_fn:
             parent.append(device_ms(parent_fn))
@@ -613,37 +676,7 @@ def check_kernels(parent: ParentKernels | None = None):
             "device": on_dev, "parent_device_ms": parent or None}
 
 
-    # -- fedavg --------------------------------------------------------------
-    for key, (k, n) in SHAPES["fedavg"].items():
-        host_data = key != "large"
-        if host_data:
-            rng = np.random.default_rng(0)
-            stack_np = rng.standard_normal((k, n)).astype(np.float32)
-            w_np = (rng.random(k) + 0.5).astype(np.float32)
-            w_np = w_np / w_np.sum()
-            stack = torch.from_numpy(stack_np).to(dev)
-            w = torch.from_numpy(w_np).to(dev)
-        else:
-            gen = torch.Generator(device=dev).manual_seed(1)
-            stack = torch.randn((k, n), generator=gen, device=dev)
-            w = torch.rand(k, generator=gen, device=dev) + 0.5
-            w = w / w.sum()
-        out = fedavg_ops.fedavg(stack, w)
-        plain = fedavg_ref.fedavg(stack, w)
-        torch.cuda.synchronize()
-        if not bits_equal(out, plain):
-            raise AssertionError(f"fedavg {k}x{n}: kernel != plain version")
-        if host_data:
-            acc = np.zeros(n, np.float32)
-            for wi, row in zip(w_np, stack_np):
-                acc += wi * row
-            if not bits_equal(out.cpu(), torch.from_numpy(acc)):
-                raise AssertionError("fedavg: kernel != numpy host fold")
-        record("fedavg", key, (k, n), 4 * k * n + 4 * k + 4 * n, 2 * k * n,
-               lambda: fedavg_ops.fedavg(stack, w),
-               lambda: fedavg_ref.fedavg(stack, w),
-               lambda: w @ stack, float((out - plain).abs().max()))
-
+    check_fedavg(dev, record, parent)
     check_quantize(dev, record, parent)
     check_dequantize_edges(dev)
     check_topk(dev, record, rows, parent)
@@ -654,6 +687,110 @@ def check_kernels(parent: ParentKernels | None = None):
     check_head_widths(dev, rows)
     check_lm_fl_kernels(dev, record, parent)
     return rows
+
+
+def _numpy_fold(stack_np, w_np):
+    """The host fold that the fedavg kernel must equal bit for bit."""
+    import numpy as np
+    acc = np.zeros(stack_np.shape[1], np.float32)
+    for wi, row in zip(w_np, stack_np):
+        acc += wi * row
+    return acc
+
+
+def _fedavg_parent_fn(parent, stack, w, out):
+    """Under ``--parent``: the replaced launch into a buffer of its own,
+    held bitwise against this kernel's ``out`` first; else None."""
+    import torch
+    if parent is None or not parent.has("fedavg"):
+        return None
+    old = torch.empty_like(out)
+    parent.fedavg(stack, w, old)
+    torch.cuda.synchronize()
+    if not bits_equal(old, out):
+        raise AssertionError(f"fedavg {tuple(stack.shape)}: the parent's "
+                             f"kernel disagrees with this one")
+    return lambda: parent.fedavg(stack, w, old)
+
+
+def _fedavg_plan(stack, w):
+    from repro_torch.kernels.fedavg import ops as fedavg_ops
+    k, n = stack.shape
+    return fedavg_ops.plan(k, n, fedavg_ops.is_aligned(stack, w))
+
+
+def _say_plan(stack, w) -> str:
+    p = _fedavg_plan(stack, w)
+    stage = f", stages of {p.stage * 4} bytes" if p.stage else ""
+    return (f"route {p.route}, {p.tile} columns a CTA, "
+            f"{p.blocks(stack.shape[1])} CTAs{stage}")
+
+
+def check_fedavg(dev, record, parent) -> None:
+    """Phase 2 for fedavg at SHAPES["fedavg"] and FEDAVG_SHAPES: each held
+    bitwise against the plain version (and, but for "large", the numpy
+    fold), its route printed, then timed (``record``); the edge cases K = 1,
+    N < a tile, N = 0 held too."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.fedavg import ops as fedavg_ops
+    from repro_torch.kernels.fedavg import ref as fedavg_ref
+
+    shapes = dict(SHAPES["fedavg"], **FEDAVG_SHAPES)
+    for key, (k, n) in shapes.items():
+        host_data = key != "large"
+        gen = torch.Generator(device=dev).manual_seed(1000 * k + n)
+        stack = torch.randn((k, n), generator=gen, device=dev)
+        w = torch.rand(k, generator=gen, device=dev) + 0.5
+        w = w / w.sum()
+        out = fedavg_ops.fedavg(stack, w)
+        plain = fedavg_ref.fedavg(stack, w)
+        torch.cuda.synchronize()
+        if not bits_equal(out, plain):
+            raise AssertionError(f"fedavg {k}x{n}: kernel != plain version")
+        if host_data and not bits_equal(out.cpu(), torch.from_numpy(
+                _numpy_fold(stack.cpu().numpy(), w.cpu().numpy()))):
+            raise AssertionError(f"fedavg {k}x{n}: kernel != numpy fold")
+        say(f"  fedavg {(k, n)}: {_say_plan(stack, w)}; kernel == plain"
+            f"{' == numpy fold' if host_data else ''}")
+        err = float((out - plain).abs().max())
+        del plain
+        record("fedavg", key, (k, n), 4 * k * n + 4 * k + 4 * n, 2 * k * n,
+               lambda: fedavg_ops.fedavg(stack, w),
+               None if k > FEDAVG_PLAIN_UNTIMED
+               else lambda: fedavg_ref.fedavg(stack, w),
+               lambda: w @ stack, err,
+               parent_fn=_fedavg_parent_fn(parent, stack, w, out),
+               plain_calls=2 if k > FEDAVG_PLAIN_DEEP else 20)
+        del stack, w, out
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(21)
+    for k, n, offset in ((1, 2048, 0), (1, 7, 0), (3, 7, 0), (5, 1, 0),
+                         (300, 2048, 1), (300, 2048, 4), (2, 0, 0)):
+        # offset: the stack a view one or four floats into its buffer, so
+        # its base is off the 16-byte grid (cp_async) or back on it (tma)
+        stack_np = rng.standard_normal((k, n)).astype(np.float32)
+        w_np = (rng.random(k) + 0.5).astype(np.float32)
+        buf = torch.zeros(k * n + offset, device=dev)
+        buf[offset:] = torch.from_numpy(stack_np).to(dev).reshape(-1)
+        stack = buf[offset:].view(k, n)
+        w = torch.from_numpy(w_np).to(dev)
+        before = kernels.launch_counts["fedavg"]
+        out = fedavg_ops.fedavg(stack, w)
+        launched = kernels.launch_counts["fedavg"] - before
+        torch.cuda.synchronize()
+        if not (bits_equal(out, fedavg_ref.fedavg(stack, w))
+                and bits_equal(out.cpu(), torch.from_numpy(
+                    _numpy_fold(stack_np, w_np)))
+                and launched == (1 if n else 0)):
+            raise AssertionError(f"fedavg edge {(k, n)} offset {offset}: "
+                                 f"kernel != plain / numpy, or {launched} "
+                                 f"launches")
+    say("  fedavg edges (1, 2048), (1, 7), (3, 7), (5, 1), (300, 2048) one "
+        "and four floats into a buffer, (2, 0): kernel == plain == numpy "
+        "fold, one launch (none at N = 0)")
 
 
 def _dequantize_library(q, scales, n: int, block: int, want):
@@ -689,7 +826,7 @@ def _record_dequantize(record, key, q, scales, n, block, out, parent) -> None:
     say(f"  dequantize {(rows, n)} library yardstick "
         f"(per-channel quantized tensor .dequantize()): {lib_note}")
     parent_fn = None
-    if parent is not None:
+    if parent is not None and parent.has("quantize"):
         old = torch.empty_like(out)
         parent.dequantize(q, scales, old, block)
         torch.cuda.synchronize()
@@ -846,11 +983,15 @@ def check_lm_fl_kernels(dev, record, parent=None) -> None:
     torch.cuda.synchronize()
     if not bits_equal(out, plain):
         raise AssertionError(f"fedavg {k}x{n}: kernel != plain version")
+    err = float((out - plain).abs().max())
+    del plain
+    say(f"  fedavg {(k, n)}: {_say_plan(stack, w)}; kernel == plain")
     record("fedavg", "lm_fl", (k, n), 4 * k * n + 4 * k + 4 * n, 2 * k * n,
            lambda: fedavg_ops.fedavg(stack, w),
            lambda: fedavg_ref.fedavg(stack, w),
-           lambda: w @ stack, float((out - plain).abs().max()))
-    del out, plain
+           lambda: w @ stack, err,
+           parent_fn=_fedavg_parent_fn(parent, stack, w, out))
+    del out
     x = stack[:1].clone()
     del stack
     nb = -(-n // BLOCK)
@@ -1025,7 +1166,7 @@ def check_topk(dev, record, records, parent=None) -> None:
         buf = torch.empty_like(out)
         scratch = topk_ops.scatter_scratch(rows, dev)
         parent_fn = None
-        if parent is not None:
+        if parent is not None and parent.has("topk"):
             old = torch.empty_like(out)
             err = torch.empty(1, dtype=torch.int32, device=dev)
             parent.scatter(idx, vals, old, err)
@@ -3027,41 +3168,53 @@ def _hold_fedavg_calls(label: str, calls) -> dict:
                        key=lambda kv: -int(kv[0].split("x")[0])))
 
 
-def _time_fedavg(stack, w) -> dict:
-    """fedavg at one of the flow path's stacks: the kernel per call and on
-    the device (20 launches in one CUDA graph), its plain version and
-    ``w @ stack`` on the device, and the bound (bytes / 3.35 TB/s)."""
+def _time_fedavg(stack, w, out, parent=None) -> dict:
+    """fedavg at one of the flow path's stacks (``out``: the kernel's
+    output there): its route, the kernel per call and on the device (20
+    launches in one CUDA graph), its plain version and ``w @ stack`` on the
+    device, the bound (bytes / 3.35 TB/s) and, under ``--parent``, the
+    replaced kernel on the device just before and just after this one."""
     from repro_torch.kernels.fedavg import ops as fedavg_ops
     from repro_torch.kernels.fedavg import ref as fedavg_ref
     k, n = stack.shape
     nbytes = 4 * k * n + 4 * k + 4 * n
     bnd, by = bound_ms(nbytes, 2 * k * n)
+    parent_fn = _fedavg_parent_fn(parent, stack, w, out)
+    before = device_ms(parent_fn) if parent_fn else None
     rec = {"shape": [k, n], "bytes": nbytes, "bound_ms": bnd,
            "bound_by": by,
+           "route": _fedavg_plan(stack, w)._asdict(),
            "ms": time_ms(lambda: fedavg_ops.fedavg(stack, w)),
            "device_ms": device_ms(lambda: fedavg_ops.fedavg(stack, w)),
            "plain_device_ms": device_ms(
                lambda: fedavg_ref.fedavg(stack, w), calls=2),
            "library_device_ms": device_ms(lambda: w @ stack)}
     rec["share_of_bound"] = bnd / rec["device_ms"]
-    say(f"    fedavg {k}x{n}: device {rec['device_ms']:.6f} ms (per call "
-        f"{rec['ms']:.6f}), bound {bnd:.6f} ms ({by}, "
-        f"{rec['share_of_bound']:.4f} of it); plain version "
-        f"{rec['plain_device_ms']:.6f} ms; w @ stack "
+    if parent_fn:
+        rec["parent_device_ms"] = [before, device_ms(parent_fn)]
+    say(f"    fedavg {k}x{n} ({_say_plan(stack, w)}): device "
+        f"{rec['device_ms']:.6f} ms (per call {rec['ms']:.6f}), bound "
+        f"{bnd:.6f} ms ({by}, {rec['share_of_bound']:.4f} of it); plain "
+        f"version {rec['plain_device_ms']:.6f} ms; w @ stack "
         f"{rec['library_device_ms']:.6f} ms (kernel "
         f"{rec['device_ms'] / rec['library_device_ms']:.2f}x its time)")
+    if parent_fn:
+        old = rec["parent_device_ms"]
+        say(f"      parent's kernel on the device: {old[0]:.6f} / "
+            f"{old[1]:.6f} ms (before / after); this one "
+            f"{rec['device_ms'] / statistics.mean(old):.3f} of it")
     return rec
 
 
-def run_flow_fleet() -> dict:
+def run_flow_fleet(parent=None) -> dict:
     """Phase 12: (a) the small flow runs of ``repro_torch.fleet_scale``
     against the reference's pins; (b) 10,000 clients for 2 rounds and
     100,000 for 1 under ``--engine flow --topology hier --cells 32
     --transports mudp`` against their pins, with fedavg's launches and
     calls by shape, every call held bitwise, and one profiled round at
     10,000 clients; (c) the flow gate at 1,024 clients; (d) fedavg timed
-    at the (K, 2048) stacks (b) launched, beside its bound and ``w @
-    stack``."""
+    at the (K, 2048) stacks (b) launched, beside its bound, ``w @ stack``
+    and (``parent``) the kernel it replaced."""
     from repro_torch import fleet_scale, kernels
     out: dict = {"pins": {}, "scale": {}}
     t0 = time.perf_counter()
@@ -3149,8 +3302,8 @@ def run_flow_fleet() -> dict:
         root = [c for c in calls if c[0].shape[0] == 32][:1]
         picks = ([cells[-1], cells[len(cells) // 2], cells[0]]
                  if cells else []) + root
-        for stack, w, _ in picks:
-            rec = _time_fedavg(stack, w)
+        for stack, w, kept in picks:
+            rec = _time_fedavg(stack, w, kept, parent)
             timed.append(dict(rec, run=label))
     out["fedavg"] = timed
     out["phase_s"] = time.perf_counter() - t0
@@ -3205,7 +3358,8 @@ def _say_wgmma_resources() -> None:
 def _say_fl_resources() -> None:
     """The top-k scatter's and dequantize's ptxas registers and spills, and
     their shared memory a CTA: the scatter's tile is dynamic, (tile + 4)
-    floats, at its path and large shapes."""
+    floats, at its path and large shapes.  Then each fedavg kernel's
+    registers, spills and static shared memory; fails on a spill."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.topk import ops as topk_ops
     tiles = {key: topk_ops.scatter_tile(rows, n) for key, (rows, n, _)
@@ -3218,6 +3372,23 @@ def _say_fl_resources() -> None:
         lines = _ptxas_lines((_build.BUILD_DIR / f"{fam}.log").read_text())
         mine = [line for entry, line in lines if entry.startswith(kernel)]
         say(f"  {kernel}: {'; '.join(mine)}; {smem}")
+    # fedavg: the wide kernel and each tile and stage size of the two tall
+    # ones (their ring is static shared memory, on ptxas's "bytes smem");
+    # no spills.
+    by_kernel: dict[str, list[str]] = {}
+    for entry, line in _ptxas_lines(
+            (_build.BUILD_DIR / "fedavg.log").read_text()):
+        by_kernel.setdefault(entry, []).append(line)
+    if len(by_kernel) != 19:
+        raise AssertionError(f"fedavg: ptxas lines for {sorted(by_kernel)}, "
+                             f"not the 19 kernels")
+    for entry, mine in sorted(by_kernel.items()):
+        say(f"  {entry}: {'; '.join(mine)}")
+        spills = [int(n) for line in mine
+                  for n in re.findall(r"(\d+) bytes spill", line)]
+        if not spills or any(spills):
+            raise AssertionError(f"{entry}: spills, or no ptxas lines: "
+                                 f"{mine}")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -3229,9 +3400,10 @@ def main(argv: list[str] | None = None) -> int:
     from repro_torch.kernels import _build
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR",
-                    help="a checkout from before the top-k scatter and "
-                         "dequantize redesign: phase 2 also times its two "
-                         "kernels beside these, in turns")
+                    help="a checkout from before the top-k scatter, "
+                         "dequantize and fedavg redesigns: phases 2 and "
+                         "12(d) also time its kernels beside these, in "
+                         "turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3334,7 +3506,7 @@ def main(argv: list[str] | None = None) -> int:
     say("[12] the flow engine at fleet scale: repro_torch.fleet_scale "
         "--engine flow, small pins, 10,000 and 100,000 clients, the flow "
         "gate, fedavg at the path's stacks")
-    flow_fleet = run_flow_fleet()
+    flow_fleet = run_flow_fleet(parent)
     say(f"  phase 12: {flow_fleet['phase_s']:.3f} s")
 
     # Each kernel's launches on its own path: slice 1's kernels on phase

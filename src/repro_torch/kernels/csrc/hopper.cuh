@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks, as inline PTX: mbarriers, named
-// barriers, TMA tile loads, wgmma shared-memory descriptors and the bf16
-// wgmma products the flash attention and mLSTM kernels issue.  Header only;
-// included by the kernels' .cu files (the host side of TMA is in
-// tensor_map.h).
+// barriers, TMA tile loads, cp.async, wgmma shared-memory descriptors and
+// the bf16 wgmma products the flash attention and mLSTM kernels issue.
+// Header only; included by the kernels' .cu files (the host side of TMA is
+// in tensor_map.h).
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: a tile
 // of R rows x 64 bf16 (128 bytes a row) is R/8 atoms of 8 rows x 128 bytes,
@@ -85,6 +85,41 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map, uint3
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// One box of a rank-2 tensor map (the fedavg kernel's f32 client stack)
+// into shared memory, completing on `bar`; elements past the tensor's
+// extent are filled with zeros, and the barrier still counts the whole
+// box's bytes.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Orders this thread's earlier shared-memory accesses (generic proxy)
+// before its later TMA writes (async proxy) into the same buffer.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- cp.async (Ampere's asynchronous copy; no alignment beyond 4 bytes) ----
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this thread are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---- wgmma ------------------------------------------------------------------

@@ -1,13 +1,14 @@
 """Wrapper of the fedavg kernel: ``(K, N) f32, (K,) f32 -> (N,) f32``.
 
 On a CUDA tensor it launches ``csrc/fedavg.cu`` (bit-identical to the
-host numpy fold); on a CPU tensor it runs the plain version in
-:mod:`repro_torch.kernels.fedavg.ref`.
+host numpy fold) by the route :func:`plan` picks; on a CPU tensor it runs
+the plain version in :mod:`repro_torch.kernels.fedavg.ref`.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -16,6 +17,60 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.fedavg import ref
 
 _LIB = None
+#: the H100's SMs: a route's grid covers them wherever N allows
+SMS = 132
+#: the wide route's CTAs (one thread a column), widest first
+WIDE_TILES = (256, 128, 64, 32, 16, 8)
+#: the tall routes' column strips a CTA, widest first
+TALL_TILES = (128, 64, 32, 16, 8)
+#: stacks of at most this many clients fold on the wide route: their
+#: rows go straight from global memory to registers, one round trip
+SHORT_K = 32
+#: tall stacks of at most this many clients stream 4 KB stages (1024
+#: floats, so the first lands sooner), taller ones 8 KB (half the turns)
+SHORT_STAGE_K = 512
+ROUTES = {"wide": 0, "tma": 1, "cp_async": 2}
+
+
+class Plan(NamedTuple):
+    route: str      # "wide", "tma" or "cp_async"
+    tile: int       # columns a CTA
+    stage: int      # floats a shared-memory stage (tall routes; 0: wide)
+
+    def blocks(self, n: int) -> int:
+        return -(-n // self.tile)
+
+
+def _widest(n: int, tiles: tuple[int, ...]) -> int:
+    """The widest tile whose grid still covers the SMs, else the
+    narrowest."""
+    return next((t for t in tiles if -(-n // t) >= SMS), tiles[-1])
+
+
+def plan(k: int, n: int, aligned: bool) -> Plan:
+    """The kernel's route, columns a CTA and stage size for a (k, n)
+    stack; ``aligned``: the stack's and the weights' bases and the stack's
+    row stride (n * 4 bytes) lie on the 16-byte grid.
+
+    Short stacks (k <= SHORT_K) and wide ones (256-column CTAs cover the
+    SMs twice) take the wide route: one thread a column, rows loaded
+    ahead in registers.  The rest take a tall route, whose CTAs stream a
+    strip of ``tile`` columns through a ring of shared-memory stages: by
+    TMA where it can address the rows, else by 4-byte ``cp.async``.  Every
+    tile is the widest whose grid still covers the SMs.
+    """
+    if k <= SHORT_K or n >= 2 * SMS * WIDE_TILES[0]:
+        return Plan("wide", _widest(n, WIDE_TILES), 0)
+    tile = _widest(n, TALL_TILES)
+    stage = 1024 if k <= SHORT_STAGE_K and tile <= 64 else 2048
+    return Plan("tma" if aligned else "cp_async", tile, stage)
+
+
+def is_aligned(stack: torch.Tensor, weights: torch.Tensor) -> bool:
+    """TMA's condition on a contiguous (K, N) f32 stack and its (K,)
+    weights: both bases and the stack's row stride on the 16-byte grid."""
+    return (stack.shape[1] % 4 == 0 and stack.data_ptr() % 16 == 0
+            and weights.data_ptr() % 16 == 0)
 
 
 def _lib():
@@ -24,7 +79,9 @@ def _lib():
         lib = _build.load("fedavg")
         lib.fedavg_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                    ctypes.c_void_p, ctypes.c_int,
-                                   ctypes.c_longlong, ctypes.c_void_p]
+                                   ctypes.c_longlong, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_void_p]
         lib.fedavg_f32.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -54,9 +111,11 @@ def fedavg(stack: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     out = torch.empty(n, dtype=torch.float32, device=stack.device)
     if n == 0:
         return out
+    p = plan(k, n, is_aligned(stack, weights))
     lib = _lib()
     rc = lib.fedavg_f32(stack.data_ptr(), weights.data_ptr(),
-                        out.data_ptr(), k, n,
+                        out.data_ptr(), k, n, ROUTES[p.route], p.tile,
+                        p.stage,
                         torch.cuda.current_stream(stack.device).cuda_stream)
     _build.check(rc, "fedavg", "fedavg_f32")
     kernels.launch_counts["fedavg"] += 1

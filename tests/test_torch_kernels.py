@@ -2,8 +2,11 @@
 reference's host numpy path and its Pallas kernels (interpret mode).
 
 * fedavg: bitwise equal to ``repro.core.aggregation.fedavg_stack(...,
-  "numpy")`` (the same float32 fold, no FMA); within ``rtol=atol=1e-6``
-  of the Pallas kernel, which reduces over clients in a tree.
+  "numpy")`` (the same float32 fold, no FMA), also at the flow fleets'
+  tall, narrow stacks and at strides off the 16-byte grid; within
+  ``rtol=atol=1e-6`` of the Pallas kernel, which reduces over clients in
+  a tree.  The CUDA kernel's dispatch plan covers every column once and
+  fills the SMs.
 * quantize: bitwise equal to ``quantize_int8_batch`` at any block; against
   the Pallas kernel (block 1024) and its jnp oracle (other blocks) scales
   agree to 1 ULP and codes to one step.
@@ -65,8 +68,16 @@ def _cpu():
 # --------------------------------------------------------------------------
 # fedavg
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("n", [1, 1000, 16385, 25450])
-@pytest.mark.parametrize("k", [1, 2, 5, 16])
+# The grid of short stacks, then the tall, narrow and unaligned ones the
+# kernel's routes serve: the flow fleets' cells (188 and 1875 clients of
+# 2048 parameters), the MLP's hier cells (12 x 25450, a row stride off
+# the 16-byte grid) and a tall stack whose stride is off it too.
+FEDAVG_SHAPES = ([(k, n) for k in (1, 2, 5, 16) for n in (1, 1000, 16385,
+                                                           25450)]
+                 + [(188, 2048), (1875, 2048), (12, 25450), (190, 2050)])
+
+
+@pytest.mark.parametrize("k,n", FEDAVG_SHAPES)
 def test_fedavg_plain_matches_numpy_bitwise_and_pallas(k, n):
     stack, weights = _stack(k, n)
     ours = port_agg.fedavg_stack(stack, weights, "kernel")
@@ -76,6 +87,56 @@ def test_fedavg_plain_matches_numpy_bitwise_and_pallas(k, n):
         _bits(port_agg.fedavg_stack(stack, weights, "numpy")), _bits(host))
     pallas = np.asarray(pallas_fedavg.fedavg_flat(stack, weights))
     np.testing.assert_allclose(ours, pallas, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("n", [1, 7, 2048, 2050, 25450, 1 << 24])
+def test_fedavg_plan_covers_each_column_once_and_fills_the_card(n, aligned):
+    """The kernel's dispatch: CTA b folds the columns [b * tile, (b + 1) *
+    tile) below n, so the grid covers each column exactly once; it fills
+    the H100's 132 SMs wherever N / 8 >= 132; TMA only where the row
+    stride is on the 16-byte grid; short stacks and wide ones take the
+    wide route, the rest a tall one with 4 KB stages up to 512 clients."""
+    ops = fedavg_ops
+    for k in (0, 1, 32, 33, 188, 512, 513, 1875, 60_000):
+        p = ops.plan(k, n, aligned)
+        starts = np.arange(p.blocks(n), dtype=np.int64) * p.tile
+        ends = np.minimum(starts + p.tile, n)
+        assert starts[0] == 0 and ends[-1] == n
+        np.testing.assert_array_equal(starts[1:], ends[:-1])
+        assert (ends > starts).all()
+        if n / 8 >= ops.SMS:
+            assert p.blocks(n) >= ops.SMS
+        wide = k <= ops.SHORT_K or n >= 2 * ops.SMS * ops.WIDE_TILES[0]
+        assert (p.route == "wide") == wide
+        if wide:
+            assert p.tile in ops.WIDE_TILES and p.stage == 0
+        else:
+            assert p.route == ("tma" if aligned else "cp_async")
+            assert p.tile in ops.TALL_TILES
+            assert p.stage == (1024 if k <= ops.SHORT_STAGE_K and p.tile <= 64
+                               else 2048)
+            assert 16 <= p.stage // p.tile <= 256      # rows a stage
+    assert ops.plan(1875, 2048, True) == ("tma", 8, 2048)
+    assert ops.plan(188, 2048, True) == ("tma", 8, 1024)
+    assert ops.plan(188, 2048, False) == ("cp_async", 8, 1024)
+    assert ops.plan(32, 2048, True) == ("wide", 8, 0)
+    assert ops.plan(12, 25450, False) == ("wide", 128, 0)
+    assert ops.plan(600, 25450, False) == ("cp_async", 128, 2048)
+    assert ops.plan(16, 1 << 24, True) == ("wide", 256, 0)
+    assert ops.plan(3, 140_570_352, True) == ("wide", 256, 0)
+
+
+def test_fedavg_alignment_is_the_bases_and_row_stride_on_the_16_byte_grid():
+    w = torch.ones(8)
+    assert fedavg_ops.is_aligned(torch.zeros((3, 2048)), w[:3])
+    assert not fedavg_ops.is_aligned(torch.zeros((3, 2050)), w[:3])
+    assert not fedavg_ops.is_aligned(torch.zeros((3, 2048)), w[1:4])
+    buf = torch.zeros(3 * 2048 + 4)
+    assert buf.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    assert not fedavg_ops.is_aligned(buf[1:1 + 3 * 2048].view(3, 2048),
+                                     w[:3])
+    assert fedavg_ops.is_aligned(buf[4:].view(3, 2048), w[4:7])
 
 
 def test_fedavg_ref_is_the_fold_over_normalized_weights():
@@ -368,14 +429,14 @@ def test_library_path_hashes_the_shared_headers_a_source_includes(
 
 
 def test_tma_families_hash_the_shared_hopper_headers():
-    """Both families that issue wgmma fed by TMA include the shared
-    Hopper primitives and tensor-map helper; the others include neither."""
+    """The families fed by TMA (the two that issue wgmma, and fedavg's
+    tall route) include the shared Hopper primitives and tensor-map
+    helper; the others include neither."""
     names = {fam: [h.name for h in _build._shared_headers(
         [_build._PKG / src])] for fam, src in _build.SOURCES.items()}
-    for fam in ("flash_attention", "mlstm"):
+    for fam in ("flash_attention", "mlstm", "fedavg"):
         assert names[fam] == ["hopper.cuh", "tensor_map.h"], fam
-    assert not any(names[fam] for fam in ("fedavg", "quantize", "topk",
-                                           "checksum"))
+    assert not any(names[fam] for fam in ("quantize", "topk", "checksum"))
 
 
 # --------------------------------------------------------------------------
@@ -386,13 +447,34 @@ def test_cuda_kernels_match_plain_versions_bitwise():
         pytest.skip("needs a CUDA device; chip_smoke.py runs this check "
                     "on the card")
     dev = torch.device("cuda")
+    # fedavg by each route, tile and stage size: the path's short stacks
+    # (wide), the flow fleets' (tma), strides off the 16-byte grid and a
+    # base one float into its buffer (cp_async), the first N of each tile.
+    routes = set()
+    for k, n, offset in [(16, 25450, 0), (12, 25450, 0), (32, 2048, 0),
+                         (1, 7, 0), (64, 67_584, 0), (188, 2048, 0),
+                         (1875, 2048, 0), (190, 2050, 0), (1875, 2050, 0),
+                         (300, 2048, 1), (64, 2100, 0), (600, 4196, 0),
+                         (64, 8390, 0), (600, 16_772, 0), (600, 16_774, 0)]:
+        stack, weights = _stack(k, n)
+        w = np.asarray(weights, np.float32)
+        w = torch.from_numpy(w / w.sum())
+        x = torch.from_numpy(stack)
+        buf = torch.zeros(k * n + offset, device=dev)
+        buf[offset:] = x.reshape(-1).to(dev)
+        on_card, w_card = buf[offset:].view(k, n), w.to(dev)
+        routes.add(fedavg_ops.plan(
+            k, n, fedavg_ops.is_aligned(on_card, w_card)).route)
+        got = fedavg_ops.fedavg(on_card, w_card).cpu()
+        want = fedavg_ref.fedavg(x, w)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        host = ref_agg.fedavg_stack(stack, weights, backend="numpy")
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(host))
+    assert routes == set(fedavg_ops.ROUTES)
     stack, weights = _stack(16, 25450)
     w = np.asarray(weights, np.float32)
     w = torch.from_numpy(w / w.sum())
     x = torch.from_numpy(stack)
-    got = fedavg_ops.fedavg(x.to(dev), w.to(dev)).cpu()
-    assert torch.equal(got.view(torch.int32),
-                       fedavg_ref.fedavg(x, w).view(torch.int32))
     for block in (1024, 512):
         q, s = quant_ops.quantize(x.to(dev), block)
         q_ref, s_ref = quant_ref.quantize(x, block)
