@@ -148,8 +148,29 @@ Phases, each printed on its own lines; any failure exits non-zero:
    the root): its route, device time, the bound (bytes / 3.35 TB/s) and
    its share, the plain version's and ``w @ stack``'s device times, and
    under ``--parent`` the replaced kernel's.
-13. A JSON line with every kernel's numbers, one with phases 8, 9, 11 and
-   12's, the card line again, and the result line ``{"ok": true,
+13. The paper's experiment and the reference's benchmark gates through
+   the port's entry points on the card, each part a path of its own
+   (launch counts zeroed before it and read after it, the five FL
+   kernels' calls counted by shape): (a) ``repro_torch.paper_cases``, the
+   §V cases' trace lines and stats against the reference's pins; (b)
+   ``repro_torch.quickstart``: both clients arrive, accuracy improves,
+   the round record and trace lines equal their pins, and no kernel
+   launches (Eq. 1 folds on the host); (c) ``transport_scenarios``,
+   ``transport_comparison --rounds 1`` and ``transport_ablation``, every
+   row equal to its pin; (d) ``fl_convergence``: the lossy MUDP arms'
+   accuracy equals the lossless arm's and UDP's is lower, round records
+   equal their pins, accuracy within 0.01 of the reference's; (e)
+   ``adaptive_bench --check`` (adaptive beats every static tier, the 24
+   digests under ``control="static"``, every arm equal to its pin); (f)
+   ``simcore`` at the reference CI's size, both engines' digests equal to
+   the reference's (speedups recorded, no floor); (g) ``wire_bench
+   --check --params 250000``: wire hashes equal to the reference's under
+   both wire backends, batch bytes equal to the loop's, the numpy batch
+   plane at least 4x the loop at 256 clients (the kernel backend's
+   speedup printed).  Every fedavg call of (c), (d) and (f) is held
+   bitwise against the plain version and the numpy fold.
+14. A JSON line with every kernel's numbers, one with phases 8, 9, 11, 12
+   and 13's, the card line again, and the result line ``{"ok": true,
    "device": {...}}`` last.
 
 Phase 2 also holds the flash attention and mLSTM kernels against their
@@ -175,7 +196,7 @@ CTA, and fails on a spill.
 Launch counts are zeroed just before each path (phases 4, 5, the
 checksum pass of 5, the serving run of 6, of 7 and of each configuration
 of 10, the training steps of 8, the rounds of 9 and of each arm of 11,
-and each of phase 12's runs at users' scale) and read just after it, so the comparison launches of phase 2, of the ``encode_batch`` check
+each of phase 12's runs at users' scale and each part of phase 13) and read just after it, so the comparison launches of phase 2, of the ``encode_batch`` check
 and of the serving holds do not count.
 
 ``--parent DIR`` builds the top-k scatter, dequantize and fedavg of a
@@ -234,7 +255,11 @@ FEDAVG_SHAPES = {
        for c, n in ((16, 2100), (32, 4196), (64, 8388))
        for route in ("tma", "cp") for k in (64, 600)},
     "tma128": (600, 16_772), "cp128": (600, 16_773),
-    "tall_last": (64, 67_580), "wide_first": (64, 67_584)}
+    "tall_last": (64, 67_580), "wide_first": (64, 67_584),
+    # phase 13's: transport_comparison / transport_ablation, fl_convergence
+    # and simcore's fl_round
+    "pair_40000": (2, 40_000), "pair_25450": (2, SLICE_N),
+    "simcore_64": (64, 32_768)}
 #: beyond this many clients the plain version (two launches a client) is
 #: held once and timed on the device in graphs of 2 calls, not 20
 FEDAVG_PLAIN_DEEP = 200
@@ -247,11 +272,22 @@ FEDAVG_PLAIN_UNTIMED = 10_000
 # large one at 15% density.
 TIER_K = {"t0": 10_180, "t1": 3817, "t2": 1018}
 CLIENT_SHAPES = {f"client_{t}": (1, SLICE_N, k) for t, k in TIER_K.items()}
+# wire_bench's batch sweep (phase 13): 256 clients' topk(0.01) of 256,
+# and one client's row of it, the shape its loop runs most often
+WIRE_BATCH, WIRE_CLIENT = (256, 256, 2), (1, 256, 2)
 TOPK_SHAPES = {
-    "topk_gather": dict(CLIENT_SHAPES, large=(64, 1 << 20, 157_286)),
+    "topk_gather": dict(CLIENT_SHAPES, wire_batch=WIRE_BATCH,
+                        wire_client=WIRE_CLIENT,
+                        large=(64, 1 << 20, 157_286)),
     "topk_scatter": dict(CLIENT_SHAPES, group_t0=(18, SLICE_N, 10_180),
-                         group_t2=(25, SLICE_N, 1018),
+                         group_t2=(25, SLICE_N, 1018), wire_batch=WIRE_BATCH,
+                         wire_client=WIRE_CLIENT,
                          large=(64, 1 << 20, 157_286))}
+# quantize and dequantize at wire_bench's batch shape under int8(256) and
+# int8(1024) (phase 13), and at one client's two kept values of it (n far
+# below a block: the padded lanes), by key: (rows, n, block)
+QUANT_WIRE = {"wire_b256": (256, 256, 256), "wire_b1024": (256, 256, 1024),
+              "wire_kept_b256": (1, 2, 256), "wire_kept_b1024": (1, 2, 1024)}
 CHECKSUM_LARGE = 256 << 20               # bytes
 FLEET_ROUNDS = 10
 #: the shape at which each kernel runs most often on its path (phases 4
@@ -844,14 +880,16 @@ def _record_dequantize(record, key, q, scales, n, block, out, parent) -> None:
 
 
 def check_quantize(dev, record, parent) -> None:
-    """Phase 2 for quantize and dequantize at SHAPES["quantize"]."""
+    """Phase 2 for quantize and dequantize at SHAPES["quantize"] (blocks of
+    BLOCK) and QUANT_WIRE."""
     import numpy as np
     import torch
     from repro_torch.core import compression
     from repro_torch.kernels.quantize import ops as quant_ops
     from repro_torch.kernels.quantize import ref as quant_ref
 
-    for key, (r, n) in SHAPES["quantize"].items():
+    shapes = {key: (r, n, BLOCK) for key, (r, n) in SHAPES["quantize"].items()}
+    for key, (r, n, block) in dict(shapes, **QUANT_WIRE).items():
         host_data = key != "large"
         if host_data:
             x_np = np.random.default_rng(2).standard_normal(
@@ -860,22 +898,22 @@ def check_quantize(dev, record, parent) -> None:
         else:
             gen = torch.Generator(device=dev).manual_seed(3)
             x = torch.randn((r, n), generator=gen, device=dev)
-        nb = -(-n // BLOCK)
-        q, s = quant_ops.quantize(x, BLOCK)
-        q_ref, s_ref = quant_ref.quantize(x, BLOCK)
-        deq = quant_ops.dequantize(q, s, n, BLOCK)
-        deq_ref = quant_ref.dequantize(q, s, n, BLOCK)
+        nb = -(-n // block)
+        q, s = quant_ops.quantize(x, block)
+        q_ref, s_ref = quant_ref.quantize(x, block)
+        deq = quant_ops.dequantize(q, s, n, block)
+        deq_ref = quant_ref.dequantize(q, s, n, block)
         torch.cuda.synchronize()
         if not (bits_equal(q, q_ref) and bits_equal(s, s_ref)):
             raise AssertionError(f"quantize {r}x{n}: kernel != plain")
         if not bits_equal(deq, deq_ref):
             raise AssertionError(f"dequantize {r}x{n}: kernel != plain")
         if host_data:
-            q_np, s_np = compression.quantize_int8_batch(x_np, BLOCK)
+            q_np, s_np = compression.quantize_int8_batch(x_np, block)
             if not (np.array_equal(q.cpu().numpy(), q_np)
                     and bits_equal(s.cpu(), torch.from_numpy(s_np))):
                 raise AssertionError("quantize: kernel != numpy host path")
-            d_np = compression.dequantize_int8_batch(q_np, s_np, n, BLOCK)
+            d_np = compression.dequantize_int8_batch(q_np, s_np, n, block)
             if not bits_equal(deq.cpu(), torch.from_numpy(d_np)):
                 raise AssertionError("dequantize: kernel != numpy host path")
         qerr = max(float((q.int() - q_ref.int()).abs().max()),
@@ -883,11 +921,13 @@ def check_quantize(dev, record, parent) -> None:
         # quantize reads x and writes every code (padding included) and
         # scale; |x|, max, divide, round, two clamps per element (the
         # padded lanes need none of it).
-        qbytes = 4 * r * n + r * nb * BLOCK + 4 * r * nb
+        qbytes = 4 * r * n + r * nb * block + 4 * r * nb
+        say(f"  quantize / dequantize {(r, n)} in blocks of {block}: kernel "
+            f"== plain{' == numpy host path' if host_data else ''}")
         record("quantize", key, (r, n), qbytes, 6 * r * n,
-               lambda: quant_ops.quantize(x, BLOCK),
-               lambda: quant_ref.quantize(x, BLOCK), None, qerr)
-        _record_dequantize(record, key, q, s, n, BLOCK, deq, parent)
+               lambda: quant_ops.quantize(x, block),
+               lambda: quant_ref.quantize(x, block), None, qerr)
+        _record_dequantize(record, key, q, s, n, block, deq, parent)
     # The fleet path decodes int8 after topk: one client's kept values at
     # each tier's length (its error-feedback decode).
     for tier, k in TIER_K.items():
@@ -3104,21 +3144,29 @@ FLOW_OUT = os.path.join(HERE, "build", "fleet_scale")
 FLOW_DEVICE = "cuda"
 
 
-def _capture_fedavg():
-    """Wrap the fedavg wrapper so each call keeps its inputs and output
-    (device tensors made fresh for each call, so no copy is needed);
-    returns ``(calls, undo)``."""
-    from repro_torch.kernels.fedavg import ops as fedavg_ops
-    calls, fn = [], fedavg_ops.fedavg
+def _capture_calls(names):
+    """Wrap the named FL wrappers (of FL_WRAPPERS) so each call keeps its
+    arguments and output as ``(*args, out)`` (the wire plane and
+    ``fedavg_stack`` copy their inputs to the card fresh for each call, so
+    no copy is needed); returns ``(calls by name, undo)``."""
+    import importlib
+    family = {name: fam for fam, name in FL_WRAPPERS}
+    calls, saved = {name: [] for name in names}, []
+    for name in names:
+        mod = importlib.import_module(
+            f"repro_torch.kernels.{family[name]}.ops")
+        fn = getattr(mod, name)
 
-    def kept(stack, weights):
-        out = fn(stack, weights)
-        calls.append((stack, weights, out))
-        return out
-    fedavg_ops.fedavg = kept
+        def kept(*args, _fn=fn, _name=name):
+            out = _fn(*args)
+            calls[_name].append((*args, out))
+            return out
+        saved.append((mod, name, fn))
+        setattr(mod, name, kept)
 
     def undo():
-        fedavg_ops.fedavg = fn
+        for mod, name, fn in reversed(saved):
+            setattr(mod, name, fn)
     return calls, undo
 
 
@@ -3232,7 +3280,8 @@ def run_flow_fleet(parent=None) -> dict:
         "at users' scale")
     captured = {}
     for label in FLOW_SCALE:
-        calls, undo = _capture_fedavg()
+        kept, undo = _capture_calls(("fedavg",))
+        calls = kept["fedavg"]
         try:
             kernels.reset_launch_counts()
             report, wall = _fleet_scale_run(label)
@@ -3307,6 +3356,247 @@ def run_flow_fleet(parent=None) -> dict:
             timed.append(dict(rec, run=label))
     out["fedavg"] = timed
     out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+# --------------------------------------------------------------------------
+# Phase 13: the paper's experiment and the reference's benchmark gates
+# --------------------------------------------------------------------------
+SIMCORE_ARGS = {"clients": 64, "payload_kib": 256, "params": 32_768,
+                "seed": 0, "repeats": 2}          # the reference CI's
+WIRE_PARAMS, WIRE_REPEATS = 250_000, 3             # the reference CI's
+BENCH_OUT = os.path.join(HERE, "build", "port_bench")
+
+
+#: the four wire kernels' wrappers with their plain versions
+WIRE_WRAPPERS = ("quantize", "dequantize", "topk_gather", "topk_scatter")
+
+
+def _hold_wire_calls(label: str, calls: dict) -> dict:
+    """Each quantize, dequantize, gather and scatter call of a run, bitwise
+    against its plain version on the same inputs (``calls``: by name, as
+    ``_capture_calls`` keeps them; one sync for all); returns the calls
+    held by kernel."""
+    import torch
+    from repro_torch.kernels.quantize import ref as quant_ref
+    from repro_torch.kernels.topk import ref as topk_ref
+    plain = {"quantize": quant_ref.quantize,
+             "dequantize": quant_ref.dequantize,
+             "topk_gather": topk_ref.gather, "topk_scatter": topk_ref.scatter}
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    differ, held = [], {}
+    for name in WIRE_WRAPPERS:
+        for call in calls.get(name, ()):
+            want, got = plain[name](*call[:-1]), call[-1]
+            pairs = zip(want, got) if name == "quantize" else [(want, got)]
+            for w, g in pairs:
+                if w.shape != g.shape:
+                    raise AssertionError(f"{label}: {name} shape "
+                                         f"{tuple(g.shape)} != plain "
+                                         f"{tuple(w.shape)}")
+                differ.append((bits(w) != bits(g)).any())
+        if calls.get(name):
+            held[name] = len(calls[name])
+    if differ and bool(torch.stack(differ).any()):
+        raise AssertionError(f"{label}: a wire kernel's call disagrees "
+                             f"with its plain version")
+    return held
+
+
+def _phase13_part(tag: str, fn):
+    """Run one part of phase 13 on the card with the launch counts zeroed
+    just before and read just after, the five FL kernels' calls counted by
+    shape, every fedavg call held bitwise against the plain version and
+    the numpy fold and every wire kernel call against its plain version;
+    returns ``(fn's result, record)``."""
+    import torch
+    from repro_torch import kernels
+    calls, undo_capture = _capture_calls([n for _, n in FL_WRAPPERS])
+    counters, undo = _calls_by_shape()
+    t0 = time.perf_counter()
+    try:
+        kernels.reset_launch_counts()
+        result = fn()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.launch_counts.items() if v}
+    finally:
+        undo()
+        undo_capture()
+    wall = time.perf_counter() - t0
+    rec = {"wall_s": wall, "launches": launches,
+           "calls_by_shape": {name: dict(c.most_common())
+                              for name, c in counters.items() if c}}
+    held = ""
+    if calls["fedavg"]:
+        rec["fedavg_held"] = _hold_fedavg_calls(tag, calls["fedavg"])
+        held += (f"; every fedavg call bitwise against the plain version "
+                 f"and the numpy fold, by shape "
+                 f"{json.dumps(rec['fedavg_held'])}")
+    wire_held = _hold_wire_calls(tag, calls)
+    if wire_held:
+        rec["wire_held"] = wire_held
+        held += (f"; every wire kernel call bitwise against its plain "
+                 f"version, calls {json.dumps(wire_held)}")
+    say(f"    {tag}: {wall:.3f} s; launches {json.dumps(launches)}; calls "
+        f"by shape {json.dumps(rec['calls_by_shape'])}{held}")
+    return result, rec
+
+
+def _require(tag: str, failures: list[str]) -> None:
+    for msg in failures:
+        say(f"    GATE FAILED: {tag}: {msg}")
+    if failures:
+        raise AssertionError(f"{tag}: {len(failures)} gate(s) failed: "
+                             f"{failures[0]}")
+
+
+def run_paper_and_gates() -> dict:
+    """Phase 13: the paper's experiment and the reference's benchmark gates
+    through the port's entry points on the card, each part a path of its
+    own (launches zeroed before, read after): (a) the paper's §V cases,
+    (b) the quickstart (no kernel may launch: Eq. 1 folds on the host),
+    (c) transport_scenarios, transport_comparison --rounds 1 and
+    transport_ablation, (d) fl_convergence, (e) adaptive_bench --check,
+    (f) simcore at the reference CI's size, (g) wire_bench --check
+    --params 250000.  Every row, record and digest against the
+    reference's pins; every fedavg call bitwise against the numpy fold,
+    every wire kernel call against its plain version."""
+    from repro_torch import (adaptive_bench, fl_convergence, paper_cases,
+                             quickstart, simcore, transport_ablation,
+                             transport_comparison, transport_scenarios,
+                             wire_bench)
+    from repro_torch import device as _device
+    out: dict = {"parts": {}}
+    t_phase = time.perf_counter()
+
+    say("  (a) the paper's §V cases on the port's MUDP")
+    (records, failures), rec = _phase13_part(
+        "paper_cases", paper_cases.run)
+    _require("paper_cases", failures)
+    for name, r in records.items():
+        say(f"    {name}: pin holds; {json.dumps(paper_cases.summary(r))}")
+    out["parts"]["a"] = rec
+
+    say("  (b) the quickstart: 784-32-10 MLP on the card, hex over mudp, "
+        "Eq. 1")
+    (report, failures), rec = _phase13_part(
+        "quickstart", lambda: quickstart.run(device="cuda"))
+    _require("quickstart", failures)
+    if rec["launches"]:
+        raise AssertionError(f"quickstart launched {rec['launches']}; "
+                             f"pairwise Eq. 1 folds on the host")
+    say(f"    accuracy {report['acc0']:.6f} -> {report['acc1']:.6f}; round "
+        f"record and trace lines equal their pins: "
+        f"{json.dumps({k: report['round'][k] for k in ('duration_ns', 'packets_sent', 'packets_dropped', 'retransmissions')})}")
+    out["parts"]["b"] = dict(rec, acc0=report["acc0"], acc1=report["acc1"])
+
+    say("  (c) transport_scenarios, transport_comparison --rounds 1, "
+        "transport_ablation")
+
+    def transports():
+        with _device.use_device("cuda"):
+            rows_s, fail_s = transport_scenarios.run()
+        rows_c, fail_c = transport_comparison.run_sweep(1, "cuda")
+        lines, fail_a = transport_ablation.run_table("cuda")
+        return rows_s, rows_c, lines, fail_s + fail_c + fail_a
+    (rows_s, rows_c, lines, failures), rec = _phase13_part(
+        "transports", transports)
+    _require("transports", failures)
+    if rec["launches"].get("fedavg", 0) <= 0:
+        raise AssertionError("transport_comparison: fedavg never launched")
+    say(f"    {len(rows_s)} scenario rows, {len(rows_c)} comparison rows "
+        f"and {len(lines) - 1} ablation lines equal their pins; e.g. "
+        f"{rows_s[1][0]}: {rows_s[1][2]}; {rows_c[-1][0]}: {rows_c[-1][2]}")
+    out["parts"]["c"] = rec
+
+    say("  (d) fl_convergence: 2 clients, 6 rounds, four arms, FedAvg on "
+        "the card")
+    (arms, failures), rec = _phase13_part(
+        "fl_convergence", lambda: fl_convergence.run_arms(device="cuda"))
+    _require("fl_convergence", failures)
+    if rec["launches"].get("fedavg", 0) <= 0:
+        raise AssertionError("fl_convergence: fedavg never launched")
+    say("    " + "; ".join(f"{name} {arm['accuracy']:.6f}"
+                           for name, arm in arms.items())
+        + f" (each within {fl_convergence.ACC_TOL} of the reference's; "
+        f"round records equal their pins)")
+    out["parts"]["d"] = dict(rec, accuracy={n: a["accuracy"]
+                                            for n, a in arms.items()})
+
+    say("  (e) adaptive_bench --check: 32 clients, mudp+fec, each static "
+        "tier against adaptive; the 24 digests under control='static'")
+
+    def adaptive():
+        with _device.use_device("cuda"):
+            return adaptive_bench.run_check()
+    (report, failures), rec = _phase13_part("adaptive_bench", adaptive)
+    _require("adaptive_bench", failures)
+    for name in ("fedavg", "quantize", "dequantize", "topk_gather",
+                 "topk_scatter"):
+        if rec["launches"].get(name, 0) <= 0:
+            raise AssertionError(f"adaptive_bench: {name} never launched")
+    say("    " + "; ".join(
+        f"{name} {cell['rounds_to_target']} rounds, "
+        f"{cell['sim_ns_to_target']} ns" for name, cell
+        in report["arms"].items()) + "; every arm equals its pin, both "
+        "gates hold")
+    out["parts"]["e"] = rec
+
+    say(f"  (f) simcore {SIMCORE_ARGS}: both engines, digests against the "
+        f"reference's")
+
+    def sim():
+        with _device.use_device("cuda"):
+            return simcore.run(**SIMCORE_ARGS)
+    (report, failures), rec = _phase13_part("simcore", sim)
+    _require("simcore", failures)
+    if not report["pinned"] or rec["launches"].get("fedavg", 0) <= 0:
+        raise AssertionError("simcore: not at the pinned size, or fedavg "
+                             "never launched")
+    os.makedirs(BENCH_OUT, exist_ok=True)
+    with open(os.path.join(BENCH_OUT, "simcore.json"), "w") as f:
+        json.dump(report, f, indent=1, sort_keys=True)
+    for w, cells in report["cells"].items():
+        say(f"    {w}: " + "; ".join(
+            f"{tr} {cell['speedup_events_per_sec']:.2f}x, "
+            f"{cell['batched']['events_per_sec']:.0f} events/s"
+            for tr, cell in cells.items()) + " (batched / per_packet, no "
+            "floor); digests equal their pins")
+    out["parts"]["f"] = dict(rec, speedups={
+        f"{w}/{tr}": c["speedup_events_per_sec"]
+        for w, cells in report["cells"].items() for tr, c in cells.items()})
+
+    say(f"  (g) wire_bench --check --params {WIRE_PARAMS}")
+
+    def wire():
+        with _device.use_device("cuda"):
+            return wire_bench.run(WIRE_PARAMS, WIRE_REPEATS)
+    (report, failures), rec = _phase13_part("wire_bench", wire)
+    _require("wire_bench", failures)
+    for name in WIRE_WRAPPERS:
+        if rec["launches"].get(name, 0) <= 0:
+            raise AssertionError(f"wire_bench: {name} never launched")
+    for p in report["pipelines"]:
+        say(f"    {p['spec']}: {p['bytes_per_param']:.3f} B/param, encode "
+            f"{p['encode_mb_s']:.0f} MB/s, decode {p['decode_mb_s']:.0f} "
+            f"MB/s, max_err {p['max_abs_err']:.2e}")
+    at_gate = {}
+    for backend, sweep in report["batch_sweep"].items():
+        at_gate[backend] = {e["spec"]: e["points"][-1]["speedup"]
+                            for e in sweep}
+        say(f"    batch / loop at {wire_bench.BATCH_GATE_CLIENTS} clients, "
+            f"{backend} backend: " + "; ".join(
+                f"{spec} {x:.2f}x" for spec, x in at_gate[backend].items())
+            + (f" (floor {wire_bench.BATCH_GATE_SPEEDUP}x for one spec)"
+               if backend == wire_bench.BATCH_GATE_BACKEND
+               else " (printed, not held)"))
+    say("    wire bytes equal their pins under both backends; batch bytes "
+        "equal the loop's")
+    out["parts"]["g"] = dict(rec, batch_speedup_at_256=at_gate)
+    out["phase_s"] = time.perf_counter() - t_phase
     return out
 
 
@@ -3509,6 +3799,13 @@ def main(argv: list[str] | None = None) -> int:
     flow_fleet = run_flow_fleet(parent)
     say(f"  phase 12: {flow_fleet['phase_s']:.3f} s")
 
+    say("[13] the paper's experiment and the reference's benchmark gates: "
+        "paper cases, quickstart, transport_scenarios / comparison / "
+        "ablation, fl_convergence, adaptive_bench --check, simcore, "
+        "wire_bench --check")
+    gates = run_paper_and_gates()
+    say(f"  phase 13: {gates['phase_s']:.3f} s")
+
     # Each kernel's launches on its own path: slice 1's kernels on phase
     # 4's path (their count on the fleet path beside it), the top-k
     # kernels on the fleet path, checksum on the pass over its bodies,
@@ -3565,8 +3862,18 @@ def main(argv: list[str] | None = None) -> int:
         calls_by_shape_flow_fleet={label: r["calls_by_shape"] for label, r
                                    in flow_fleet["scale"].items()},
         flow_fleet_shapes=flow_fleet["fedavg"])
+    for name in ("fedavg", "quantize", "dequantize", "topk_gather",
+                 "topk_scatter"):
+        out[list(MAIN_SHAPE).index(name)].update(
+            launches_phase13={part: rec["launches"].get(name, 0)
+                              for part, rec in gates["parts"].items()},
+            calls_by_shape_phase13={
+                part: rec["calls_by_shape"][name]
+                for part, rec in gates["parts"].items()
+                if name in rec["calls_by_shape"]})
     say(json.dumps({"lm_training": train_rec, "lm_fl": lmfl,
-                    "fleet_layer": fleet_layer, "flow_fleet": flow_fleet}))
+                    "fleet_layer": fleet_layer, "flow_fleet": flow_fleet,
+                    "paper_and_gates": gates}))
     say(f"  total {time.perf_counter() - t_start:.3f} s")
     say(json.dumps({"kernels": out}))
     say(card_line())

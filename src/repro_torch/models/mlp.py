@@ -35,7 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch import convert
+from repro_torch import convert, threefry
 from repro_torch import device as _device
 from repro_torch.core.client_compute import ClientModel
 from repro_torch.core.packetizer import flatten_to_vector, unflatten_from_vector
@@ -226,3 +226,82 @@ class MnistMLPModel(ClientModel):
         return (torch.cat([params[name].reshape(k, -1)
                            for name, _ in self.layout], dim=1),
                 {"train_loss": loss})
+
+
+# --------------------------------------------------------------------------
+# The paper's quickstart MLP (``examples/quickstart.py``,
+# ``benchmarks/fl_convergence.py``): 784 -> 32 -> 10 with a ReLU hidden
+# layer, leaves ``w0, b0, w1, b1``, full-batch SGD epochs.
+# --------------------------------------------------------------------------
+PAPER_SIZES = (784, 32, 10)
+
+
+def init_paper_mlp(seed: int = 0) -> dict[str, np.ndarray]:
+    """The reference's ``init_mlp(jax.random.PRNGKey(seed))``: float32
+    weights ``normal / sqrt(fan_in)`` drawn layer by layer from split
+    keys (:mod:`repro_torch.threefry`, within 3 ULP of JAX's draws), zero
+    biases."""
+    rng = threefry.key(seed)
+    params = {}
+    for i, (a, b) in enumerate(zip(PAPER_SIZES[:-1], PAPER_SIZES[1:])):
+        rng, k = threefry.split(rng)
+        params[f"w{i}"] = threefry.normal(k, (a, b)) / np.float32(np.sqrt(a))
+        params[f"b{i}"] = np.zeros((b,), np.float32)
+    return params
+
+
+def paper_forward(params: dict[str, torch.Tensor], x: torch.Tensor
+                  ) -> torch.Tensor:
+    """Logits of ``x``: affine layers in index order, ReLU between."""
+    n = len(params) // 2
+    h = x
+    for i in range(n):
+        h = h @ params[f"w{i}"] + params[f"b{i}"]
+        if i < n - 1:
+            h = torch.relu(h)
+    return h
+
+
+def paper_sgd_epoch(params: dict[str, torch.Tensor], x: torch.Tensor,
+                    y: torch.Tensor, lr: float = 0.1
+                    ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+    """One full-batch SGD step: the new parameters and the loss before
+    it (mean softmax cross-entropy)."""
+    p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    loss = F.cross_entropy(paper_forward(p, x), y)
+    grads = torch.autograd.grad(loss, list(p.values()))
+    with torch.no_grad():
+        return ({k: w - lr * g for (k, w), g in zip(p.items(), grads)},
+                loss.detach())
+
+
+def paper_train_fn(dataset: Any, client_id: int,
+                   device: _device.DeviceLike | None = None) -> Callable:
+    """An :class:`FLClient` train function: 3 full-batch SGD epochs at lr
+    0.1 on the device over ``dataset.sample(256, client=client_id,
+    step=round)``."""
+    dev = _device.resolve(device)
+
+    def train(params: Any, round_idx: int, client: Any
+              ) -> tuple[dict[str, np.ndarray], dict]:
+        x, y = dataset.sample(256, client=client_id, step=round_idx)
+        p = {k: torch.from_numpy(np.array(v, np.float32)).to(dev)
+             for k, v in params.items()}
+        x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).long().to(dev)
+        for _ in range(3):
+            p, loss = paper_sgd_epoch(p, x, y)
+        return ({k: v.cpu().numpy() for k, v in p.items()},
+                {"local_loss": float(loss)})
+    return train
+
+
+@torch.no_grad()
+def paper_accuracy(params: Any, dataset: Any, *, step: int,
+                   device: _device.DeviceLike | None = None) -> float:
+    """Accuracy on ``dataset.sample(1024, client=99, step=step)``."""
+    dev = _device.resolve(device)
+    x, y = dataset.sample(1024, client=99, step=step)
+    p = {k: torch.from_numpy(np.array(v, np.float32)).to(dev)
+         for k, v in params.items()}
+    pred = paper_forward(p, torch.from_numpy(x).to(dev)).argmax(dim=1)
+    return float((pred.cpu() == torch.from_numpy(y).long()).float().mean())

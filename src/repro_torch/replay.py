@@ -218,6 +218,17 @@ _PINNED_FIELDS = ("round_idx", "duration_ns", "arrived", "failed",
                   "metrics", "roster", "data_packets", "nack_packets",
                   "parity_packets")
 
+#: the fields of a round that depend only on the simulation (not on the
+#: parameters' values where the wire's sizes do not): the pinned set
+#: without the clients' metrics, plus the decode errors
+ROUND_FIELDS = tuple(f for f in _PINNED_FIELDS if f != "metrics") + (
+    "decode_errors",)
+
+
+def round_record(res) -> dict:
+    """A :class:`RoundResult`'s :data:`ROUND_FIELDS` as a dict."""
+    return {f: getattr(res, f) for f in ROUND_FIELDS}
+
 
 def run_digest(scenario: str, kind: str = "mudp",
                engine: str = "per_packet",

@@ -224,7 +224,7 @@ def test_fleet_sim_run_records_match_reference():
 # --------------------------------------------------------------------------
 # What no slice serves is refused; every option of the example runs
 # --------------------------------------------------------------------------
-def test_unported_configurations_are_refused():
+def test_unknown_names_are_refused_and_flow_fleets_run():
     """A name no registry holds raises with the registered names; the
     flow engine, refused until its slice was ported, builds and runs a
     trained fleet as the reference does."""

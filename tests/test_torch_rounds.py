@@ -41,7 +41,7 @@ def test_replay_constants_are_the_reference_pins():
     assert replay.EXPECTED == EXPECTED
 
 
-def test_slice_registers_every_transport_and_refuses_flow():
+def test_slice_registers_every_transport_and_wraps_each_in_flow():
     """Every transport is registered, the digests run the two packet
     engines, and the flow engine (once refused, ported since) is a third
     engine that wraps each registered transport in its analytic model."""

@@ -305,7 +305,7 @@ def test_gossip_rejects_delta_pipelines():
                     FLConfig(transport=TransportConfig(kind="mudp")))
 
 
-def test_gossip_refuses_the_flow_engine():
+def test_gossip_runs_on_the_flow_engine_as_the_reference():
     """Gossip refused the flow engine until its slice was ported; now its
     peer exchange runs through the analytic transport models, bitwise as
     the reference's gossip does."""
