@@ -51,7 +51,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
    P-1 tokens plus one decode step gives the full prefill's logits within
    the same error; (c) top-1 tokens agree wherever the top-2 margin
    exceeds the error.  Prints prefill and decode wall time, launches and
-   peak memory.
+   peak memory (and the peak just after the prefill).
 7. xlstm-350m serving at full width (24 layers, d_model 1024, mLSTM head
    width 512): B=4 x 2048 tokens (the chunkwise mLSTM kernel, 21
    launches), 16 greedy steps from the recurrent state, holds (a)-(c) with
@@ -169,8 +169,30 @@ Phases, each printed on its own lines; any failure exits non-zero:
    plane at least 4x the loop at 256 clients (the kernel backend's
    speedup printed).  Every fedavg call of (c), (d) and (f) is held
    bitwise against the plain version and the numpy fold.
-14. A JSON line with every kernel's numbers, one with phases 8, 9, 11, 12
-   and 13's, the card line again, and the result line ``{"ok": true,
+14. The mesh tooling on the card: (a) hymba-1.5b's seeded parameters at
+   its published width stacked for 4 pods (each with its own seeded
+   perturbation) and aggregated by ``repro_torch.distributed.fl_mesh.
+   make_fl_aggregate`` in ``exact`` mode (fedavg) and ``int8`` mode (the
+   row-wise quantize, dequantize and fedavg), each mode a path of its
+   own: its wall, launches and calls by shape, the bytes each pod would
+   send and the peak memory, then two more aggregations, the second with
+   each kernel call between CUDA events (each kernel's device time over
+   its calls beside its bound: inputs read and outputs written once);
+   every leaf must equal, bitwise, the same aggregation through the
+   plain versions on the card, every pod must hold the same values, and
+   the int8 float32 means must lie within absmax / 254 a row of the
+   exact ones; (b) the dry-run's estimate
+   (``repro_torch.launch.lowering.estimate_cell``) of phase 6's prefill
+   and a decode step over its grown cache, phase 7's prefill and phase
+   8's train step: estimated and model FLOPs, the useful ratio, the
+   estimated and the measured peak (the gemma3-12b prefill's within
+   DRYRUN_PEAK_TOL of the peak just after it, the rest printed), and
+   the phase's model-FLOP rate against the bf16 peak; (c) ``python -m
+   repro_torch.launch.dryrun`` on one cell and ``python -m
+   repro_torch.roofline`` must exit 0 (their files go to
+   ``build/port_dryrun/``).
+15. A JSON line with every kernel's numbers, one with phases 8, 9, 11-14's,
+   the card line again, and the result line ``{"ok": true,
    "device": {...}}`` last.
 
 Phase 2 also holds the flash attention and mLSTM kernels against their
@@ -196,8 +218,10 @@ CTA, and fails on a spill.
 Launch counts are zeroed just before each path (phases 4, 5, the
 checksum pass of 5, the serving run of 6, of 7 and of each configuration
 of 10, the training steps of 8, the rounds of 9 and of each arm of 11,
-each of phase 12's runs at users' scale and each part of phase 13) and read just after it, so the comparison launches of phase 2, of the ``encode_batch`` check
-and of the serving holds do not count.
+each of phase 12's runs at users' scale, each part of phase 13 and each
+mode of phase 14(a)) and read just after it, so the comparison launches
+of phase 2, of the ``encode_batch`` check and of the serving and
+aggregation holds do not count.
 
 ``--parent DIR`` builds the top-k scatter, dequantize and fedavg of a
 checkout from before their redesign (``DIR/src/repro_torch/kernels``;
@@ -2058,6 +2082,7 @@ def run_lm_path(arch: str) -> tuple[dict, dict]:
         logits, cache = prefill(params, {"tokens": prompt})
         torch.cuda.synchronize()
         t_prefill = time.perf_counter() - t0
+        peak_prefill_gb = torch.cuda.max_memory_allocated() / 1e9
         prefill_cache = cache            # decode writes only into copies
         if cfg.family == "dense":                  # + 2 profiled steps
             cache = T.grow_cache(cache, P + GEN_STEPS + 2)
@@ -2077,7 +2102,8 @@ def run_lm_path(arch: str) -> tuple[dict, dict]:
         f"({B * P / t_prefill:.1f} tok/s); {GEN_STEPS} greedy steps: "
         f"{sum(steps):.6f} s (first {steps[0] * 1e3:.3f} ms, median "
         f"{statistics.median(steps) * 1e3:.3f} ms/step); peak memory "
-        f"{peak_gb:.3f} GB")
+        f"{peak_gb:.3f} GB ({peak_prefill_gb:.3f} GB just after the "
+        f"prefill)")
     say(f"  launch counts: {json.dumps(counts)}")
     for b in range(B):
         say(f"  seq{b}: {tokens[b].tolist()}")
@@ -2142,8 +2168,8 @@ def run_lm_path(arch: str) -> tuple[dict, dict]:
     return counts, {"prefill_s": t_prefill, "decode_s": sum(steps),
                     "decode_step_first_s": steps[0],
                     "decode_step_median_s": statistics.median(steps),
-                    "peak_gb": peak_gb, "profile": prof, "holds": holds,
-                    "n_params": n_params}
+                    "peak_gb": peak_gb, "peak_prefill_gb": peak_prefill_gb,
+                    "profile": prof, "holds": holds, "n_params": n_params}
 
 
 def _module_env() -> dict:
@@ -2582,6 +2608,8 @@ def run_train_path() -> dict:
         state, m = step(state, b)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+    # the steps' own peak: the profiled steps below hold one more state
+    peak_steps_gb = torch.cuda.max_memory_allocated() / 1e9
     bs = [batches(s) for s in range(1 + TRAIN_TIMED, 3 + TRAIN_TIMED)]
     holder = {"state": state}
 
@@ -2598,7 +2626,8 @@ def run_train_path() -> dict:
         f"moments, batch {TRAIN['batch']} x {TRAIN['seq']} tokens: "
         f"{s_step:.6f} s/step (median of {TRAIN_TIMED}: "
         f"{', '.join(f'{t:.6f}' for t in times)}), {tokens / s_step:.1f} "
-        f"tokens/s, peak memory {peak_gb:.3f} GB, idle share "
+        f"tokens/s, peak memory {peak_gb:.3f} GB ({peak_steps_gb:.3f} GB "
+        f"over the unprofiled steps), idle share "
         f"{prof['idle_share']:.4f} over 2 profiled steps, model FLOPs "
         f"6 N tokens = {flops:.4e} a step, {flops / s_step / 1e12:.3f} "
         f"TFLOP/s = {flops / s_step / PEAK_BF16_FLOPS:.5f} of 989 TFLOP/s "
@@ -2613,6 +2642,7 @@ def run_train_path() -> dict:
     torch.cuda.empty_cache()
     return {"s_per_step": s_step, "steps_s": times,
             "tokens_per_s": tokens / s_step, "peak_gb": peak_gb,
+            "peak_steps_gb": peak_steps_gb,
             "idle_share": prof["idle_share"], "n_params": n,
             "mfu_estimate": flops / s_step / PEAK_BF16_FLOPS,
             "profile": prof}
@@ -3600,6 +3630,304 @@ def run_paper_and_gates() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 14: the mesh tooling on one card
+# --------------------------------------------------------------------------
+# (a) the pod-axis FL aggregation at hymba-1.5b's published width, stacked
+# for POD_COUNT pods, each the seeded parameters plus a seeded pod's own
+# perturbation of POD_NOISE standard deviations
+POD_ARCH, POD_COUNT, POD_NOISE = "hymba-1.5b", 4, 1e-2
+# (b) the dry-run's estimate of the cells phases 6-8 ran, each beside the
+# phase's measured peak: (label, arch, ShapeConfig fields)
+DRYRUN_CELLS = (
+    ("gemma3-12b prefill 2 x 2048", "gemma3-12b",
+     ("prefill_2x2048", 2048, 2, "prefill", 0)),
+    ("xlstm-350m prefill 4 x 2048", "xlstm-350m",
+     ("prefill_4x2048", 2048, 4, "prefill", 0)),
+    ("xlstm-350m AdamW train 4 x 128", "xlstm-350m",
+     ("train_4x128", TRAIN["seq"], TRAIN["batch"], "train", 0)),
+    ("gemma3-12b decode B = 2 over 2048 + 16", "gemma3-12b",
+     ("decode_2x2066", LM_PATHS["gemma3-12b"]["prompt"] + GEN_STEPS + 2,
+      2, "decode", LM_PATHS["gemma3-12b"]["prompt"] + GEN_STEPS + 2)))
+#: the gemma3-12b prefill estimate's peak against the measured one
+DRYRUN_PEAK_TOL = 0.15
+DRYRUN_OUT = os.path.join("build", "port_dryrun")
+
+
+def _swapped_fl_aggregate(mode: str, fedavg, quantize, dequantize):
+    """``make_fl_aggregate`` with its three wrappers swapped for the given
+    callables; returns ``(agg, undo)``."""
+    import types
+
+    from repro_torch.distributed import fl_mesh
+    saved = (fl_mesh.fedavg_ops, fl_mesh.quant_ops)
+    fl_mesh.fedavg_ops = types.SimpleNamespace(fedavg=fedavg)
+    fl_mesh.quant_ops = types.SimpleNamespace(quantize=quantize,
+                                              dequantize=dequantize)
+
+    def undo():
+        fl_mesh.fedavg_ops, fl_mesh.quant_ops = saved
+    return fl_mesh.make_fl_aggregate(fl_mesh.client_mesh(), mode=mode), undo
+
+
+def _timed_kernel_ms(mode: str, stacked) -> dict:
+    """Two more aggregations, the second with each kernel call between two
+    CUDA events on the stream (the wrapper places nothing else on the
+    card; the first leaves the allocator holding every buffer, so no
+    ``cudaMalloc`` stalls between the events): per kernel, (device ms
+    summed over its calls, calls)."""
+    import torch
+    from repro_torch.kernels.fedavg import ops as fedavg_ops
+    from repro_torch.kernels.quantize import ops as quant_ops
+    events = {"fedavg": [], "quantize": [], "dequantize": []}
+
+    def timed(name, fn):
+        def call(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            stop.record()
+            events[name].append((start, stop))
+            return out
+        return call
+    agg, undo = _swapped_fl_aggregate(
+        mode, timed("fedavg", fedavg_ops.fedavg),
+        timed("quantize", quant_ops.quantize),
+        timed("dequantize", quant_ops.dequantize))
+    try:
+        agg(stacked)
+        for ev in events.values():
+            ev.clear()
+        agg(stacked)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    return {name: (sum(a.elapsed_time(b) for a, b in ev), len(ev))
+            for name, ev in events.items() if ev}
+
+
+def run_pod_aggregation(dev: str = "cuda", cfg=None) -> dict:
+    """(a) POD_ARCH's seeded parameters stacked for POD_COUNT pods, each
+    with its own seeded perturbation, aggregated by
+    ``make_fl_aggregate(mode="exact")`` and ``"int8"`` on the card, each
+    mode a path of its own (launch counts zeroed just before and read just
+    after, the FL kernels' calls counted by shape).  Holds: every leaf
+    bitwise equal to the same aggregation through the plain versions on
+    the card, every pod identical, the int8 float32 means within the
+    codec's absmax / 254 of the exact ones a row, and fedavg (both modes),
+    quantize and dequantize (int8) launched."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import fl_mesh
+    from repro_torch.kernels.fedavg import ref as fedavg_ref
+    from repro_torch.kernels.quantize import ref as quant_ref
+    from repro_torch.models import model as M
+    from repro_torch.tree import named_leaves
+
+    dev = torch.device(dev)
+    cfg = cfg or get_config(POD_ARCH)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stacked = fl_mesh.stack_for_pods(M.init(cfg, gen, dev), POD_COUNT)
+    leaves = dict(named_leaves(stacked))
+    for x in leaves.values():
+        for pod in x:
+            pod.add_(torch.randn(pod.shape, generator=gen, device=dev,
+                                 dtype=torch.float32).mul_(POD_NOISE)
+                     .to(pod.dtype))
+    torch.cuda.synchronize()
+    per_pod = sum(x[0].numel() for x in leaves.values())
+    rows = sum(x[0].numel() // x.shape[-1] for x in leaves.values())
+    dtypes = sorted({str(x.dtype) for x in leaves.values()})
+    gb = sum(x.numel() * x.element_size() for x in leaves.values()) / 1e9
+    say(f"  {cfg.name}: {per_pod} parameters a pod ({', '.join(dtypes)}) "
+        f"in {len(leaves)} leaves x {POD_COUNT} pods, {gb:.3f} GB stacked; "
+        f"built in {time.perf_counter() - t0:.3f} s")
+    send = {"exact": sum(x[0].numel() * x.element_size()
+                         for x in leaves.values()),
+            "int8": per_pod + 4 * rows}
+    # each kernel's (bytes, operations), summed over the leaves: inputs
+    # read once and outputs written once (float32 stacks and means, int8
+    # codes, a scale a row); fedavg a multiply and an add a stacked value,
+    # quantize an absmax and a divide, dequantize a multiply
+    stacked_n = POD_COUNT * per_pod
+    kernel_work = {"fedavg": (4 * stacked_n + 4 * per_pod, 2 * stacked_n),
+                   "quantize": (5 * stacked_n + 4 * POD_COUNT * rows,
+                                2 * stacked_n),
+                   "dequantize": (5 * stacked_n + 4 * POD_COUNT * rows,
+                                  stacked_n)}
+    out = {"arch": cfg.name, "pods": POD_COUNT, "params_per_pod": per_pod,
+           "leaves": len(leaves), "rows_per_pod": rows, "modes": {}}
+    for mode in fl_mesh.MODES:
+        agg = fl_mesh.make_fl_aggregate(fl_mesh.client_mesh(), mode=mode)
+        counters, undo = _calls_by_shape()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            result = agg(stacked)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: v for k, v in kernels.launch_counts.items() if v}
+        finally:
+            undo()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        by_shape = {name: dict(c.most_common())
+                    for name, c in counters.items() if c}
+        want = ({"fedavg"} if mode == "exact"
+                else {"fedavg", "quantize", "dequantize"})
+        if set(launches) != want:
+            raise AssertionError(f"pod aggregation {mode}: launches "
+                                 f"{launches}, want each of {sorted(want)}")
+        got_leaves = dict(named_leaves(result))
+        say(f"  {mode}: {wall:.6f} s wall (ending in a synchronize); "
+            f"launches {json.dumps(launches)}; calls by shape "
+            f"{json.dumps(by_shape)}; each pod would send {send[mode]} B "
+            f"({send[mode] / per_pod:.4f} B a parameter); peak memory "
+            f"{peak:.3f} GB")
+        plain, undo = _swapped_fl_aggregate(
+            mode, fedavg_ref.fedavg, quant_ref.quantize, quant_ref.dequantize)
+        differ = []
+        try:
+            for name, x in leaves.items():
+                got = got_leaves[name]
+                ref = plain({"x": x})["x"]
+                differ.append((got.view(torch.int16 if got.element_size()
+                                        == 2 else torch.int32)
+                               != ref.view(torch.int16 if ref.element_size()
+                                           == 2 else torch.int32)).any())
+                differ.append((got != got[:1]).any())
+                del ref
+        finally:
+            undo()
+        if bool(torch.stack(differ).any()):
+            raise AssertionError(f"pod aggregation {mode}: a leaf differs "
+                                 f"from the plain versions' or between "
+                                 f"pods")
+        say(f"  {mode}: every leaf bitwise equal to the plain versions' "
+            f"aggregation on the card; every pod identical")
+        del result, got_leaves
+        torch.cuda.empty_cache()
+        timed = _timed_kernel_ms(mode, stacked)
+        kernel_ms = {}
+        for name in sorted(want):
+            ms, n = timed[name]
+            nbytes, flops = kernel_work[name]
+            bound, by = bound_ms(nbytes, flops)
+            kernel_ms[name] = {"device_ms": ms, "calls": n,
+                               "bytes": nbytes, "bound_ms": bound,
+                               "bound_by": by}
+            say(f"    {name}: device {ms:.6f} ms over {n} calls; bound "
+                f"{bound:.6f} ms ({by}: {nbytes} B, {flops} float32 "
+                f"operations; {bound / ms if ms else 0:.3f} of it)")
+        out["modes"][mode] = {"wall_s": wall, "launches": launches,
+                              "calls_by_shape": by_shape,
+                              "bytes_sent_per_pod": send[mode],
+                              "peak_gb": peak, "kernels": kernel_ms}
+    worst, over = 0.0, []
+    for name, x in leaves.items():
+        exact = fl_mesh.pod_mean(x, "exact")
+        int8 = fl_mesh.pod_mean(x, "int8")
+        bound = x.abs().amax(dim=(0, x.dim() - 1)).double() / 254
+        err = (int8.double() - exact.double()).abs().amax(dim=-1)
+        worst = max(worst, float((err / bound).max()))
+        if bool((err > bound).any()):
+            over.append(name)
+    say(f"  int8 vs exact float32 means: the largest row error "
+        f"{worst:.4f} of the row's absmax / 254 (hold 1.0)")
+    if over:
+        raise AssertionError(f"pod aggregation: int8 off the exact mean by "
+                             f"more than absmax / 254 at {over}")
+    out["int8_err_share_of_bound"] = worst
+    del stacked, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_dryrun_cells(lm: dict, train_rec: dict) -> list[dict]:
+    """(b) The dry-run's estimate of each DRYRUN_CELLS cell beside the
+    phase that ran it: estimated and model FLOPs, the useful ratio, the
+    estimated and measured peaks, and the phase's model-FLOP rate against
+    the bf16 peak.  Holds the gemma3-12b prefill's peak within
+    DRYRUN_PEAK_TOL of the one measured just after that prefill."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.launch import lowering
+
+    measured = {
+        "gemma3-12b prefill 2 x 2048": (
+            lm["gemma3-12b"][1]["peak_prefill_gb"],
+            lm["gemma3-12b"][1]["prefill_s"]),
+        "xlstm-350m prefill 4 x 2048": (
+            lm["xlstm-350m"][1]["peak_prefill_gb"],
+            lm["xlstm-350m"][1]["prefill_s"]),
+        "xlstm-350m AdamW train 4 x 128": (train_rec["peak_steps_gb"],
+                                           train_rec["s_per_step"]),
+        "gemma3-12b decode B = 2 over 2048 + 16": (
+            lm["gemma3-12b"][1]["peak_gb"],
+            lm["gemma3-12b"][1]["decode_step_median_s"])}
+    train_cfg = TrainConfig(learning_rate=1e-3, warmup_steps=10,
+                            total_steps=100, remat_policy="none")
+    out = []
+    for label, arch, dims in DRYRUN_CELLS:
+        shape = ShapeConfig(*dims)
+        rep = lowering.estimate_cell(
+            arch, shape, train_cfg=train_cfg if shape.mode == "train"
+            else None)
+        if rep.status != "ok":
+            raise AssertionError(f"dry-run {label}: {rep.error}")
+        peak_gb, wall = measured[label]
+        est_gb = rep.bytes_per_device / 1e9
+        gap = est_gb / peak_gb - 1
+        rate = rep.model_flops_global / wall
+        what = ("the peak of phase 6's prefill and decode"
+                if shape.mode == "decode" else
+                "the peak just after the prefill"
+                if shape.mode == "prefill" else
+                "the peak over phase 8's unprofiled steps")
+        say(f"  {label}: estimated {rep.hlo_flops:.4e} FLOPs, model "
+            f"{rep.model_flops_global:.4e} (useful {rep.useful_ratio:.4f}); "
+            f"estimated peak {est_gb:.3f} GB, measured {peak_gb:.3f} GB "
+            f"({what}), gap {gap:+.4f}"
+            + (f" (hold {DRYRUN_PEAK_TOL})" if label == DRYRUN_CELLS[0][0]
+               else " (printed)")
+            + f"; the phase's wall {wall:.6f} s: model FLOPs "
+            f"{rate / 1e12:.3f} TFLOP/s = {rate / PEAK_BF16_FLOPS:.5f} of "
+            f"989 TFLOP/s; trace {rep.compile_seconds:.3f} s")
+        out.append(dict(dataclasses.asdict(rep), label=label,
+                        measured_peak_gb=peak_gb, peak_gap=gap,
+                        phase_wall_s=wall, model_flop_rate=rate))
+    if abs(out[0]["peak_gap"]) > DRYRUN_PEAK_TOL:
+        raise AssertionError(f"dry-run {out[0]['label']}: estimated peak "
+                             f"off the measured one by "
+                             f"{out[0]['peak_gap']:+.4f}")
+    return out
+
+
+def run_mesh_tooling(lm: dict, train_rec: dict) -> dict:
+    """Phase 14: (a) the pod aggregation, (b) the dry-run against the
+    card, (c) the dry-run and roofline entry points as subprocesses."""
+    t_phase = time.perf_counter()
+    say(f"  (a) pod aggregation: {POD_ARCH} x {POD_COUNT} pods, exact and "
+        f"int8")
+    pods = run_pod_aggregation()
+    say("  (b) the dry-run's estimates of phases 6-8's cells")
+    cells = run_dryrun_cells(lm, train_rec)
+    say("  (c) the entry points")
+    os.makedirs(os.path.join(HERE, DRYRUN_OUT), exist_ok=True)
+    _run_module("dryrun", ["repro_torch.launch.dryrun", "--arch",
+                           "xlstm-350m", "--shape", "prefill_32k", "--out",
+                           os.path.join(DRYRUN_OUT, "dryrun_phase14.json")],
+                timeout=120)
+    _run_module("roofline", ["repro_torch.roofline"], timeout=60)
+    return {"pods": pods, "dryrun": cells,
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def _ptxas_lines(log: str) -> list[tuple[str, str]]:
     """(kernel, line) for each register, spill and wgmma line of an
     ``nvcc -Xptxas=-v`` log; the kernel as ``name<template args>``."""
@@ -3806,6 +4134,12 @@ def main(argv: list[str] | None = None) -> int:
     gates = run_paper_and_gates()
     say(f"  phase 13: {gates['phase_s']:.3f} s")
 
+    say(f"[14] the mesh tooling: the pod-axis FL aggregation ({POD_ARCH} x "
+        f"{POD_COUNT} pods, exact and int8), the dry-run against phases "
+        f"6-8, the dry-run and roofline entry points")
+    mesh = run_mesh_tooling(lm, train_rec)
+    say(f"  phase 14: {mesh['phase_s']:.3f} s")
+
     # Each kernel's launches on its own path: slice 1's kernels on phase
     # 4's path (their count on the fleet path beside it), the top-k
     # kernels on the fleet path, checksum on the pass over its bodies,
@@ -3871,9 +4205,17 @@ def main(argv: list[str] | None = None) -> int:
                 part: rec["calls_by_shape"][name]
                 for part, rec in gates["parts"].items()
                 if name in rec["calls_by_shape"]})
+    for name in ("fedavg", "quantize", "dequantize"):
+        out[list(MAIN_SHAPE).index(name)].update(
+            launches_phase14={mode: rec["launches"].get(name, 0)
+                              for mode, rec in mesh["pods"]["modes"].items()},
+            calls_by_shape_phase14={
+                mode: rec["calls_by_shape"][name]
+                for mode, rec in mesh["pods"]["modes"].items()
+                if name in rec["calls_by_shape"]})
     say(json.dumps({"lm_training": train_rec, "lm_fl": lmfl,
                     "fleet_layer": fleet_layer, "flow_fleet": flow_fleet,
-                    "paper_and_gates": gates}))
+                    "paper_and_gates": gates, "mesh_tooling": mesh}))
     say(f"  total {time.perf_counter() - t_start:.3f} s")
     say(json.dumps({"kernels": out}))
     say(card_line())

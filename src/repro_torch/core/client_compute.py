@@ -271,12 +271,23 @@ class VmapBackend(TrainBackend):
 
 
 class ShardBackend(VmapBackend):
-    """The reference's ``shard_map`` over a device mesh, on the one card
-    this port drives: there it *is* the vmap backend (as the reference's
-    falls back to vmap on one device).  Spreading the batch over several
-    cards is the mesh work still to come."""
+    """The reference's ``shard_map`` over the client mesh
+    (:func:`repro_torch.distributed.fl_mesh.client_mesh`).  On one device
+    it *is* the vmap backend, as the reference's is.  Spreading a batch
+    over several cards is not ported (ROADMAP.md §A), so with more than
+    one visible card it raises instead of running on one."""
 
     name = "shard"
+
+    def train(self, model, stack, client_idx, round_idx):
+        from repro_torch.distributed.fl_mesh import client_mesh
+        mesh = client_mesh()
+        if mesh.size > 1:
+            raise NotImplementedError(
+                f"train backend 'shard' over {mesh.size} cards: spreading "
+                f"a batch over several cards is not ported (ROADMAP.md §A); "
+                f"use 'vmap', or make one card visible")
+        return super().train(model, stack, client_idx, round_idx)
 
 
 _TRAIN_BACKENDS: dict[str, Callable[[], TrainBackend]] = {}

@@ -1,0 +1,93 @@
+"""Dry-run of every (architecture x input shape) cell on one H100: FLOPs,
+bytes, peak memory and roofline terms of each cell's step, estimated by
+tracing it on the ``meta`` device (:func:`repro_torch.launch.lowering.
+estimate_cell`).
+
+The estimate places no tensor on any device and launches nothing, so it
+has no ``--device``: it runs anywhere, and its numbers are the card's
+only through the published peaks it divides by.  Cells that do not fit
+the card are estimated all the same (``fits`` says so).
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-9b \\
+      --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all \\
+      --out build/port_dryrun/dryrun.json
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+from repro_torch.configs import ARCH_IDS, SHAPES, get_config
+from repro_torch.launch.lowering import estimate_cell, shape_applicable
+
+
+def _line(rep) -> str:
+    mark = {"ok": "PASS", "skipped": "SKIP", "error": "FAIL"}[rep.status]
+    line = f"[{mark}] {rep.arch:22s} {rep.shape:12s} {rep.mesh:10s}"
+    if rep.status == "ok":
+        line += (f" mem/dev={rep.bytes_per_device / 2**30:7.2f}GiB"
+                 f" fits={'yes' if rep.fits else 'no'}"
+                 f" flops/dev={rep.hlo_flops:.3e}"
+                 f" coll/dev={rep.collective_bytes:.3e}B"
+                 f" dominant={rep.dominant}"
+                 f" trace={rep.compile_seconds:.0f}s")
+    else:
+        line += f" {rep.error[:120]}"
+    return line
+
+
+def run_cells(archs, shapes, *, out_path=None, verbose=True):
+    reports = []
+    for arch in archs:
+        cfg = get_config(arch)
+        for shape_name in shapes:
+            if not shape_applicable(cfg, shape_name):
+                continue
+            rep = estimate_cell(arch, shape_name)
+            reports.append(rep)
+            if verbose:
+                print(_line(rep), flush=True)
+            if out_path:
+                os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+                with open(out_path, "w") as f:
+                    json.dump([r.to_json() for r in reports], f, indent=1)
+    return reports
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
+    ap.add_argument("--arch", action="append", default=None,
+                    choices=ARCH_IDS,
+                    help="architecture id (repeatable); default: all")
+    ap.add_argument("--shape", action="append", default=None,
+                    choices=list(SHAPES), help="shape preset (repeatable)")
+    ap.add_argument("--all", action="store_true",
+                    help="all archs x all shapes")
+    ap.add_argument("--out", default=None, help="JSON report path")
+    args = ap.parse_args(argv)
+    if not (args.all or args.arch or args.shape):
+        ap.error("name cells with --arch / --shape, or pass --all")
+
+    archs = args.arch or ARCH_IDS
+    shapes = args.shape or list(SHAPES)
+    t0 = time.perf_counter()
+    reports = run_cells(archs, shapes, out_path=args.out)
+    bad = [r for r in reports if r.status == "error"]
+    print(f"\n{len(reports)} cells: "
+          f"{sum(r.status == 'ok' for r in reports)} ok, "
+          f"{sum(r.status == 'skipped' for r in reports)} skipped, "
+          f"{len(bad)} failed; {time.perf_counter() - t0:.1f} s")
+    for r in bad:
+        print(f"  FAIL {r.arch} {r.shape} {r.mesh}: {r.error[:200]}")
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

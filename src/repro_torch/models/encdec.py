@@ -80,6 +80,30 @@ def init_encdec(cfg: ModelConfig, gen: torch.Generator,
             "dec_norm": ones(d)}
 
 
+def encdec_param_specs(cfg: ModelConfig) -> dict:
+    """Logical-axis tree mirroring ``init_encdec`` output."""
+    att = {
+        "wq": ("layers", "w_data", "heads", "head_dim"),
+        "wk": ("layers", "w_data", "kv_heads", "head_dim"),
+        "wv": ("layers", "w_data", "kv_heads", "head_dim"),
+        "wo": ("layers", "heads", "head_dim", "w_data"),
+    }
+    mlp = {"w_up": ("layers", "w_data", "d_ff"),
+           "w_down": ("layers", "d_ff", "w_data")}
+    return {
+        "embed": ("vocab", "embed_d"),
+        "unembed": ("embed_d", "vocab"),
+        "enc_layers": {"attn_norm": ("layers", None),
+                       "mlp_norm": ("layers", None), **att, **mlp},
+        "dec_layers": {"attn_norm": ("layers", None),
+                       "cross_norm": ("layers", None),
+                       "mlp_norm": ("layers", None), **att, **mlp,
+                       **{"c" + k: v for k, v in att.items()}},
+        "enc_norm": (None,),
+        "dec_norm": (None,),
+    }
+
+
 def _remat(body, remat_policy: str):
     if remat_policy == "none":
         return body
@@ -178,6 +202,12 @@ def encdec_loss(cfg: ModelConfig, params: dict, batch: dict, *,
 # --------------------------------------------------------------------------
 # Serving: prefill + decode with self-KV cache and fixed cross-KV
 # --------------------------------------------------------------------------
+def encdec_cache_specs(cfg: ModelConfig) -> dict:
+    kv = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    ckv = ("layers", "batch", None, "kv_heads", "head_dim")
+    return {"k": kv, "v": kv, "ck": ckv, "cv": ckv, "pos": ()}
+
+
 def init_encdec_cache(cfg: ModelConfig, batch: int, max_len: int,
                       device: _device.DeviceLike | None = None) -> dict:
     dev = _device.resolve(device)

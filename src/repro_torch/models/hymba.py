@@ -60,6 +60,27 @@ def init_hymba(cfg: ModelConfig, gen: torch.Generator,
             "layers": layer}
 
 
+def hymba_param_specs(cfg: ModelConfig) -> dict:
+    """Logical-axis tree mirroring ``init_hymba`` output."""
+    layer = {
+        "attn_norm": ("layers", None), "mlp_norm": ("layers", None),
+        "fuse_norm_attn": ("layers", None), "fuse_norm_ssm": ("layers", None),
+        "wq": ("layers", "w_data", "heads", "head_dim"),
+        "wk": ("layers", "w_data", "kv_heads", "head_dim"),
+        "wv": ("layers", "w_data", "kv_heads", "head_dim"),
+        "wo": ("layers", "heads", "head_dim", "w_data"),
+        "w_in": ("layers", "w_data", "d_inner"),
+        "w_gate_ssm": ("layers", "w_data", "d_inner"),
+        "w_out_ssm": ("layers", "d_inner", "w_data"),
+        "w_gate": ("layers", "w_data", "d_ff"),
+        "w_up": ("layers", "w_data", "d_ff"),
+        "w_down": ("layers", "d_ff", "w_data"),
+        "ssm": M.ssm_param_specs(),
+    }
+    return {"embed": ("vocab", "embed_d"), "final_norm": (None,),
+            "layers": layer}
+
+
 def _layers(params: dict) -> list[dict]:
     """Per-layer views of the stacked layers, the SSM head's under
     ``"ssm"``."""
@@ -153,6 +174,14 @@ def init_hymba_cache(cfg: ModelConfig, batch: int, max_len: int,
                             device=dev),
         "pos": 0,
     }
+
+
+def hymba_cache_specs(cfg: ModelConfig) -> dict:
+    return {"k": ("layers", "batch", "kv_seq", "kv_heads", "head_dim"),
+            "v": ("layers", "batch", "kv_seq", "kv_heads", "head_dim"),
+            "ssm": ("layers", "batch", "d_inner", None),
+            "conv": ("layers", "batch", None, "d_inner"),
+            "pos": ()}
 
 
 def hymba_prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,

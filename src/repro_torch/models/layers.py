@@ -17,8 +17,9 @@ channel is not ``arange`` (a VLM's position ids may start elsewhere)
 takes the masked route instead (:func:`prefill_route`).  The decode step
 (``kv_valid`` given) and training (``impl="einsum"``, the reference's
 default for a loss: the kernel has no backward) run the plain einsum
-attention.  The reference's sharding constraints have no counterpart on
-one device.
+attention.  The reference's sharding constraints resolve through
+:mod:`repro_torch.distributed.sharding`, where on one card
+``constraint`` is the identity, so the model code calls none.
 """
 
 from __future__ import annotations
@@ -68,9 +69,9 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
         raise ValueError(f"M-RoPE sections {sections} do not sum to "
                          f"head_dim / 2 = {half}")
     pos = positions if positions.dim() == 3 else positions[None]
-    sec_ids = torch.repeat_interleave(
-        torch.arange(len(sections), device=pos.device),
-        torch.tensor(sections, device=pos.device)).clamp(max=pos.shape[0] - 1)
+    sec_ids = torch.tensor([min(c, pos.shape[0] - 1)
+                            for c, n in enumerate(sections) for _ in range(n)],
+                           device=pos.device)
     angles = pos[sec_ids].permute(1, 2, 0).float() * freq   # (B, S, half)
     return torch.cos(angles), torch.sin(angles)
 

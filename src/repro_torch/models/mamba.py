@@ -35,6 +35,20 @@ def init_ssm(init, shape_prefix: tuple, d_inner: int, n_state: int,
     }
 
 
+def ssm_param_specs() -> dict:
+    """Logical-axis tree mirroring ``init_ssm`` output (stacked by
+    layer)."""
+    return {
+        "conv_w": ("layers", None, "d_inner"),
+        "w_dt": ("layers", "w_data", "d_inner"),
+        "b_dt": ("layers", "d_inner"),
+        "w_B": ("layers", "w_data", None),
+        "w_C": ("layers", "w_data", None),
+        "A_log": ("layers", "d_inner", None),
+        "D": ("layers", "d_inner"),
+    }
+
+
 def causal_conv(x: torch.Tensor, w: torch.Tensor,
                 state: torch.Tensor | None = None):
     """Depthwise causal conv. x (B,S,D), w (K,D). With ``state`` (B,K-1,D)

@@ -7,6 +7,10 @@
   init_cache(cfg, batch, max_len, device) -> per-family serve state
   make_prefill_step(cfg)        -> callable(params, batch) -> (logits, cache)
   make_decode_step(cfg)         -> callable(params, cache, tokens) -> (logits, cache)
+  param_specs / cache_specs / batch_specs / train_state_specs
+                                -> logical-axis trees (the reference's)
+  abstract_params / abstract_train_state / input_specs
+                                -> the same trees of ``meta`` tensors
 
 Every family of the reference: ``dense``, ``moe`` and ``vlm``
 (transformer), ``encdec`` (whisper), ``ssm`` (xLSTM) and ``hybrid``
@@ -28,7 +32,8 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
-from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
+from repro_torch.launch import cost
 from repro_torch.models import encdec as E
 from repro_torch.models import hymba as HY
 from repro_torch.models import transformer as T
@@ -53,6 +58,24 @@ def init(cfg: ModelConfig, gen: torch.Generator,
     return {"transformer": T.init_decoder, "encdec": E.init_encdec,
             "ssm": X.init_xlstm, "hybrid": HY.init_hymba}[_family(cfg)](
         cfg, gen, device)
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """Logical-axis tree mirroring :func:`init` output."""
+    return {"transformer": T.decoder_param_specs,
+            "encdec": E.encdec_param_specs, "ssm": X.xlstm_param_specs,
+            "hybrid": HY.hymba_param_specs}[_family(cfg)](cfg)
+
+
+def _abstract_gen() -> torch.Generator:
+    """A generator for draws on ``meta``, which allocate nothing."""
+    return torch.Generator().manual_seed(0)
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree on the ``meta`` device: shapes and dtypes,
+    nothing allocated (the dry-run's stand-in)."""
+    return init(cfg, _abstract_gen(), "meta")
 
 
 # --------------------------------------------------------------------------
@@ -128,7 +151,7 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
         gsum = [torch.zeros(p.shape, dtype=adt, device=p.device)
                 for p in tree_leaves(params)]
         lsum = torch.zeros((), dtype=torch.float32)
-        for i in range(n):
+        for i in cost.steps(n, closed=True):
             micro = {key: _micro(key, val, n, i)
                      for key, val in batch.items()}
             loss, g = value_and_grad(lf, params, micro)
@@ -155,6 +178,15 @@ def init_train_state(cfg: ModelConfig, opt: Optimizer, gen: torch.Generator,
                       opt.init(params))
 
 
+def abstract_train_state(cfg: ModelConfig, opt: Optimizer) -> TrainState:
+    return init_train_state(cfg, opt, _abstract_gen(), "meta")
+
+
+def train_state_specs(cfg: ModelConfig, opt: Optimizer) -> TrainState:
+    ps = param_specs(cfg)
+    return TrainState(step=(), params=ps, opt_state=opt.state_specs(ps))
+
+
 # --------------------------------------------------------------------------
 # serving
 # --------------------------------------------------------------------------
@@ -166,6 +198,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return {"transformer": T.init_cache, "encdec": E.init_encdec_cache,
             "hybrid": HY.init_hymba_cache}[family](cfg, batch, max_len,
                                                    device)
+
+
+def cache_specs(cfg: ModelConfig) -> dict:
+    return {"transformer": T.cache_specs, "encdec": E.encdec_cache_specs,
+            "ssm": X.xlstm_state_specs,
+            "hybrid": HY.hymba_cache_specs}[_family(cfg)](cfg)
 
 
 def make_prefill_step(cfg: ModelConfig, attn_impl: str = "kernel"
@@ -206,3 +244,60 @@ def make_decode_step(cfg: ModelConfig) -> Callable:
     def decode(params, cache, tokens, positions=None):
         return fn(cfg, params, cache, tokens)
     return decode
+
+
+# --------------------------------------------------------------------------
+# input specs (dry-run contract)
+# --------------------------------------------------------------------------
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """``meta`` stand-ins for every model input of this cell, with the
+    reference's shapes and dtypes: tokens (and M-RoPE positions, and a
+    cache's ``pos``) stay int32, as the reference's are (``batch_to``
+    widens them when it places a batch)."""
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    dt = getattr(torch, cfg.dtype)
+
+    def sds(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if shape.mode in ("train", "prefill"):
+        batch = {"tokens": sds((B, S), i32)}
+        if shape.mode == "train":
+            batch["labels"] = sds((B, S), i32)
+        if cfg.family == "encdec":
+            batch["frames"] = sds((B, cfg.encoder_seq, cfg.d_model), dt)
+        if cfg.mrope:
+            batch["positions"] = sds((3, B, S), i32)
+            batch["vision_embeds"] = sds((B, cfg.vision_tokens, cfg.d_model),
+                                         dt)
+        return {"batch": batch}
+
+    if shape.mode == "decode":
+        cache = init_cache(cfg, B, shape.kv_len, "meta")
+        cache["pos"] = sds((), i32)
+        out = {"tokens": sds((B, 1), i32), "cache": cache}
+        if cfg.mrope:
+            out["positions"] = sds((3, B, 1), i32)
+        return out
+
+    raise ValueError(shape.mode)
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Logical-axis tree matching :func:`input_specs`."""
+    tok = ("batch", "act_seq")
+    if shape.mode in ("train", "prefill"):
+        batch = {"tokens": tok}
+        if shape.mode == "train":
+            batch["labels"] = tok
+        if cfg.family == "encdec":
+            batch["frames"] = ("batch", None, None)
+        if cfg.mrope:
+            batch["positions"] = (None, "batch", "act_seq")
+            batch["vision_embeds"] = ("batch", None, None)
+        return {"batch": batch}
+    out = {"tokens": ("batch", None), "cache": cache_specs(cfg)}
+    if cfg.mrope:
+        out["positions"] = (None, "batch", None)
+    return out

@@ -31,6 +31,7 @@ import torch.utils.checkpoint
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import cost
 from repro_torch.models import layers as L
 
 
@@ -103,6 +104,39 @@ def init_decoder(cfg: ModelConfig, gen: torch.Generator,
     return params
 
 
+def decoder_param_specs(cfg: ModelConfig) -> dict:
+    """Logical-axis tree mirroring ``init_decoder`` output (the
+    reference's, for :mod:`repro_torch.distributed.sharding`)."""
+    layer = {
+        "attn_norm": ("layers", None),
+        "mlp_norm": ("layers", None),
+        "wq": ("layers", "w_data", "heads", "head_dim"),
+        "wk": ("layers", "w_data", "kv_heads", "head_dim"),
+        "wv": ("layers", "w_data", "kv_heads", "head_dim"),
+        "wo": ("layers", "heads", "head_dim", "w_data"),
+    }
+    if cfg.num_experts:
+        layer.update({
+            "router": ("layers", "w_data", None),
+            "we_gate": ("layers", None, "w_data", "d_ff"),
+            "we_up": ("layers", None, "w_data", "d_ff"),
+            "we_down": ("layers", None, "d_ff", "w_data"),
+        })
+    else:
+        if cfg.mlp_type == "swiglu":
+            layer["w_gate"] = ("layers", "w_data", "d_ff")
+        layer["w_up"] = ("layers", "w_data", "d_ff")
+        layer["w_down"] = ("layers", "d_ff", "w_data")
+    specs = {
+        "embed": ("vocab", "embed_d"),
+        "final_norm": (None,),
+        "layers": layer,
+    }
+    if not cfg.tie_embeddings:
+        specs["unembed"] = ("embed_d", "vocab")
+    return specs
+
+
 def _layer(params: dict, i: int) -> dict:
     return {name: w[i] for name, w in params["layers"].items()}
 
@@ -127,7 +161,7 @@ def _moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
                           device=x.device).scatter_(-1, top_i,
                                                     top_w.to(x.dtype))
     acc = torch.zeros_like(x)
-    for e in range(cfg.num_experts):
+    for e in cost.steps(cfg.num_experts):
         h = F.silu(x @ p["we_gate"][e]) * (x @ p["we_up"][e])
         acc = acc + (h * combine[..., e, None]) @ p["we_down"][e]
     return acc
@@ -153,7 +187,10 @@ def _moe_block_ragged(x: torch.Tensor, p: dict,
     TK = T * K
     order = torch.argsort(flat_e, stable=True)
     x_sorted = xf[order // K]                                    # (TK, d)
-    group_sizes = torch.bincount(flat_e, minlength=E)
+    # bincount's length reads the data; E bins are known
+    group_sizes = torch.zeros(E, dtype=flat_e.dtype,
+                              device=x.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
     cap = min(TK, int(-(-TK // E) * MOE_CAPACITY_FACTOR))
     starts = torch.cumsum(group_sizes, 0) - group_sizes
     slot = torch.arange(cap, device=x.device)
@@ -236,15 +273,17 @@ def decoder_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     reference wraps its layer body in ``jax.checkpoint``; values are the
     same (there is no counterpart of the ``dots`` save policy: the whole
     layer is recomputed)."""
-    if positions is None:
+    if positions is None:        # arange: its route needs no read
         positions = default_positions(tokens)
+        impl = attn_impl
+    else:
+        impl = L.prefill_route(attn_impl, mask_channel(positions))
     cos, sin = _rope(cfg, positions)
     x = L.embed_tokens(params["embed"], tokens)
     if vision_embeds is not None:
         x = torch.cat([vision_embeds.to(x.dtype),
                        x[:, vision_embeds.shape[1]:]], dim=1)
     q_pos = mask_channel(positions)
-    impl = L.prefill_route(attn_impl, q_pos)
 
     def body(h, p, window):
         attn_out, k, v = _attn_block(L.rmsnorm(h, p["attn_norm"]), p, cos,
@@ -315,6 +354,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return {"k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
             "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
             "pos": 0}
+
+
+def cache_specs(cfg: ModelConfig) -> dict:
+    return {"k": ("layers", "batch", "kv_seq", "kv_heads", "head_dim"),
+            "v": ("layers", "batch", "kv_seq", "kv_heads", "head_dim"),
+            "pos": ()}
 
 
 def grow_cache(cache: dict, max_len: int) -> dict:

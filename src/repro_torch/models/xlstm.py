@@ -28,6 +28,7 @@ from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mlstm import ops as mlstm_ops
 from repro_torch.kernels.mlstm import ref as mlstm_ref
+from repro_torch.launch import cost
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import padded_vocab
 
@@ -93,6 +94,30 @@ def init_xlstm(cfg: ModelConfig, gen: torch.Generator,
             "w_down": init(sp + (d, d), d),
         },
     }
+
+
+def xlstm_param_specs(cfg: ModelConfig) -> dict:
+    """Logical-axis tree mirroring ``init_xlstm`` output."""
+    m = {
+        "norm": ("layers", "layers2", None),
+        "w_up": ("layers", "layers2", "w_data", "heads"),
+        "w_z": ("layers", "layers2", "w_data", "heads"),
+        "w_q": ("layers", "layers2", "w_data", None, "head_dim"),
+        "w_k": ("layers", "layers2", "w_data", None, "head_dim"),
+        "w_v": ("layers", "layers2", "w_data", None, "head_dim"),
+        "w_if": ("layers", "layers2", "w_data", None, None),
+        "b_if": ("layers", "layers2", None, None),
+        "w_down": ("layers", "layers2", "heads", "w_data"),
+    }
+    s = {
+        "norm": ("layers", None),
+        "w_gates": ("layers", "w_data", None, None, None),
+        "r_gates": ("layers", None, None, None, None),
+        "b_gates": ("layers", None, None, None),
+        "w_down": ("layers", "w_data", None),
+    }
+    return {"embed": ("vocab", "embed_d"), "final_norm": (None,),
+            "mlstm": m, "slstm": s}
 
 
 # --------------------------------------------------------------------------
@@ -298,10 +323,10 @@ def slstm_block(x, p, cfg, *, state=None):
     carry = (state if state is not None
              else _slstm_zero_state(B, nh, dh, x.dtype, x.device))
     hs = []
-    for t in range(S):
+    for t in cost.steps(S):
         carry, h = _slstm_cell(carry, gz[:, t], p["r_gates"])
         hs.append(h)
-    out = torch.stack(hs, dim=1).reshape(B, S, d)
+    out = cost.stack_steps(hs, S, dim=1).reshape(B, S, d)
     return x + out @ p["w_down"], carry
 
 
@@ -372,6 +397,17 @@ def init_xlstm_state(cfg: ModelConfig, batch: int,
                            dtype=getattr(torch, cfg.dtype), device=dev),
         "pos": 0,
     }
+
+
+def xlstm_state_specs(cfg: ModelConfig) -> dict:
+    return {"m_C": ("layers", "layers2", "batch", None, None, None),
+            "m_n": ("layers", "layers2", "batch", None, None),
+            "m_m": ("layers", "layers2", "batch", None),
+            "s_c": ("layers", "batch", None, None),
+            "s_n": ("layers", "batch", None, None),
+            "s_m": ("layers", "batch", None, None),
+            "s_h": ("layers", "batch", None, None),
+            "pos": ()}
 
 
 def xlstm_prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,

@@ -6,8 +6,8 @@
 (no ``torch.optim``): the update math is the reference's, in its order,
 in float32 whatever the parameter dtype.  AdamW keeps float32 moments for
 bfloat16 parameters (``moments_dtype``), the standard mixed-precision
-recipe.  The reference's sharding specs (``state_specs``) have no
-counterpart on one device.
+recipe.  ``state_specs(param_specs)`` gives the state's logical-axis
+tree (the reference's), for :mod:`repro_torch.distributed.sharding`.
 """
 
 from __future__ import annotations
@@ -55,6 +55,10 @@ class Optimizer:
         raise NotImplementedError
 
     def update(self, grads, state, params, step):  # pragma: no cover
+        raise NotImplementedError
+
+    def state_specs(self, param_specs):
+        """Logical-axis specs for the optimizer state, mirroring params."""
         raise NotImplementedError
 
 
@@ -106,6 +110,9 @@ class AdamW(Optimizer):
         new_v = rebuild(params, iter(o[2] for o in out))
         return new_params, {"m": new_m, "v": new_v}, {
             "grad_norm": gnorm, "lr": lr}
+
+    def state_specs(self, param_specs):
+        return {"m": param_specs, "v": param_specs}
 
 
 def _leaf_states(params, f_tree) -> list:
@@ -180,6 +187,17 @@ class Adafactor(Optimizer):
         new_f = rebuild(params, iter(o[1] for o in out))
         return new_params, {"f": new_f}, {"grad_norm": gnorm, "lr": lr}
 
+    def state_specs(self, param_specs):
+        """Factored leaves (rank >= 2) keep the row spec (the last axis
+        dropped) and the column spec (the second to last dropped)."""
+        from repro_torch.distributed.sharding import map_specs
+
+        def leaf(spec):
+            if len(spec) >= 2:
+                return {"vr": spec[:-1], "vc": spec[:-2] + spec[-1:]}
+            return {"v": spec}
+        return {"f": map_specs(leaf, param_specs)}
+
 
 @dataclasses.dataclass(frozen=True)
 class Sgd(Optimizer):
@@ -207,6 +225,9 @@ class Sgd(Optimizer):
         new_params = tree_map(
             lambda p, m: (p.float() - lr * m).to(p.dtype), params, new_mom)
         return new_params, {"mom": new_mom}, {"grad_norm": gnorm, "lr": lr}
+
+    def state_specs(self, param_specs):
+        return {} if self.momentum == 0.0 else {"mom": param_specs}
 
 
 def make_optimizer(name: str, schedule, **kw) -> Optimizer:
