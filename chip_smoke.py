@@ -22,10 +22,19 @@ Phases, each printed on its own lines; any failure exits non-zero:
    unordered rows and duplicates over many tiles beside increasing ones,
    one tile, K = 0, widths off the 16-byte grid, 70,000 rows and bad
    indices (which must raise); n % 4 = 1, 2, 3, blocks of 1000, 7 and 1,
-   the top-k tier lengths, 65,537 rows and codes off the grid.  The top-k
-   gather's bound is also counted the way the card reads x: the distinct
-   32-byte sectors its indices touch (counted on the card), plus the
-   indices and the values written; both shares are printed.
+   the top-k tier lengths, 65,537 rows and codes off the grid.  Quantize
+   is also held at one leaf of each row width of phase 14 (QUANT_LEAVES)
+   and at its edge cases (QUANT_EDGES: n % 4 = 1, 2, 3 over several rows,
+   blocks 1, 7, 1000, a block size for each of its kernels by vector and
+   scalar loads, 65,537 rows, x off the 16-byte grid), each against the
+   plain version and numpy, and each timing line names the route
+   ``ops.quantize_plan`` picked and ends with its share of the bound.
+   The top-k gather's bound is also counted the way the card reads x:
+   the distinct 32-byte sectors its indices touch (counted on the card),
+   plus the indices and the values written; both shares are printed.
+   The gather's bad-index calls good, bad, good, bad, bad must raise at
+   the bad ones only, and three gather calls captured in a CUDA graph
+   must be three kernel nodes (no memset).
 3. The 24 pinned orchestrator replays (6 scenarios x mudp, udp, tcp,
    mudp+fec) under both packet engines with the fedavg kernel: each must
    reproduce the reference's digest.
@@ -146,8 +155,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
    floor); (d) fedavg at the (K, 2048)
    stacks (b) launched (each run's largest, median and smallest cell, and
    the root): its route, device time, the bound (bytes / 3.35 TB/s) and
-   its share, the plain version's and ``w @ stack``'s device times, and
-   under ``--parent`` the replaced kernel's.
+   its share, and the plain version's and ``w @ stack``'s device times.
 13. The paper's experiment and the reference's benchmark gates through
    the port's entry points on the card, each part a path of its own
    (launch counts zeroed before it and read after it, the five FL
@@ -181,7 +189,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
    every leaf must equal, bitwise, the same aggregation through the
    plain versions on the card, every pod must hold the same values, and
    the int8 float32 means must lie within absmax / 254 a row of the
-   exact ones; (b) the dry-run's estimate
+   exact ones (under ``--parent`` the int8 quantize calls are timed with
+   the replaced kernel too, in turns); (b) the dry-run's estimate
    (``repro_torch.launch.lowering.estimate_cell``) of phase 6's prefill
    and a decode step over its grown cache, phase 7's prefill and phase
    8's train step: estimated and model FLOPs, the useful ratio, the
@@ -223,11 +232,12 @@ mode of phase 14(a)) and read just after it, so the comparison launches
 of phase 2, of the ``encode_batch`` check and of the serving and
 aggregation holds do not count.
 
-``--parent DIR`` builds the top-k scatter, dequantize and fedavg of a
-checkout from before their redesign (``DIR/src/repro_torch/kernels``;
-each family whose source differs from this checkout's) and times each
-just before and just after this one at every phase-2 shape, and fedavg
-also at phase 12(d)'s stacks, on the same card.
+``--parent DIR`` builds the quantize and top-k gather of a checkout
+from before their redesign (``DIR/src/repro_torch/kernels``; each whose
+family source differs from this checkout's) and times
+each just before and just after this one at every phase-2 shape, and
+quantize also over phase 14(a)'s int8 aggregation (parent, this, this,
+parent), on the same card.
 
 fedavg (redesigned for tall, narrow stacks) is held at more shapes in
 phase 2: the path's, the flow fleets' cells and root, a 60,000-client
@@ -235,7 +245,10 @@ fold, strides off the 16-byte grid and the first N of each route, tile
 and stage size of ``ops.plan`` (FEDAVG_SHAPES), each line naming its
 route, plus its edge cases; phase 1 prints each of its 19 kernels'
 ptxas registers, spills and static shared memory and fails on a spill;
-phase 12(d) names the route at each stack.
+phase 12(d) names the route at each stack.  Phase 1 also prints the
+ptxas registers, spills and shared memory of the gather and of each
+quantize kernel (every (lanes, units) of ``ops.QUANT_KERNELS`` and the
+wide route) and fails on a spill.
 
 It exits non-zero with no result when CUDA is unavailable.
 """
@@ -312,6 +325,13 @@ TOPK_SHAPES = {
 # below a block: the padded lanes), by key: (rows, n, block)
 QUANT_WIRE = {"wire_b256": (256, 256, 256), "wire_b1024": (256, 256, 1024),
               "wire_kept_b256": (1, 2, 256), "wire_kept_b1024": (1, 2, 1024)}
+# quantize at one leaf of each row width that phase 14's int8 aggregation
+# quantizes (hymba-1.5b x 4 pods, in blocks of the width): ssm w_B (16),
+# wk (64), w_in (1600) and w_up (5504), by key: (rows, n, block)
+QUANT_LEAVES = {"leaf_d16": (204_800, 16, 16),
+                "leaf_d64": (1_024_000, 64, 64),
+                "leaf_d1600": (204_800, 1600, 1600),
+                "leaf_d5504": (204_800, 5504, 5504)}
 CHECKSUM_LARGE = 256 << 20               # bytes
 FLEET_ROUNDS = 10
 #: the shape at which each kernel runs most often on its path (phases 4
@@ -582,17 +602,23 @@ def bound_ms(nbytes: int, flops: int,
 # Phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
 class ParentKernels:
-    """The top-k scatter, dequantize and fedavg launchers of a checkout from
-    before their redesign (``--parent DIR``), built with the port's flags
-    into ``build/torch_kernels/parent-*.so``, so that phases 2 and 12(d)
-    time each beside the kernel that replaced it, in turns, in one run.
-    Their C interface is that checkout's: ``topk_scatter_f32(idx, vals,
-    out, rows, K, n, err, stream)``, ``dequantize_i8_f32(q, scales, out,
-    rows, n, nb, block, stream)`` and ``fedavg_f32(x, w, out, K, N,
-    stream)``.  A family whose source this checkout still has unchanged
-    replaced nothing: it is not built, and ``has`` says so."""
+    """The quantize and top-k gather launchers of a checkout from before
+    their redesign (``--parent DIR``), built with the port's flags into
+    ``build/torch_kernels/parent-*.so``, so that phases 2 and 14(a) time
+    each beside the kernel that replaced it, in turns, in one run.  Their
+    C interface is that checkout's: ``quantize_f32_i8(x, q, scales, rows,
+    n, nb, block, stream)`` (one CTA a block) and
+    ``topk_gather_f32(x, idx, out, rows, P, K, err, stream)`` (which
+    zeroes ``err``, an int, then launches).  A kernel whose family source
+    this checkout still has unchanged replaced nothing: it is not built,
+    and ``has`` says so.  (The scatter, dequantize and fedavg were timed
+    beside the kernels they replaced when they were redesigned; the
+    checkout just before this redesign holds the same ones as this.)"""
 
-    FAMILIES = ("topk", "quantize", "fedavg")
+    #: kernel -> (family, launcher, its arguments but the stream: p a
+    #: pointer, l a long long, i an int)
+    KERNELS = {"quantize": ("quantize", "quantize_f32_i8", "ppplliip"),
+               "topk_gather": ("topk", "topk_gather_f32", "ppplllpp")}
 
     def __init__(self, root: str):
         from repro_torch.kernels import _build
@@ -602,8 +628,9 @@ class ParentKernels:
         def source(base, f):
             with open(os.path.join(base, _build.SOURCES[f]), "rb") as fh:
                 return fh.read()
-        self.families = tuple(f for f in self.FAMILIES if source(kdir, f)
-                              != source(_build._PKG, f))
+        self.families = tuple(sorted(
+            {f for f, _, _ in self.KERNELS.values()
+             if source(kdir, f) != source(_build._PKG, f)}))
         _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         self.libs = {f: _build.BUILD_DIR / f"parent-{f}.so"
                      for f in self.families}
@@ -613,8 +640,8 @@ class ParentKernels:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
             for f in self.families]
 
-    def has(self, family: str) -> bool:
-        return family in self.families
+    def has(self, kernel: str) -> bool:
+        return self.KERNELS[kernel][0] in self.families
 
     def load(self) -> None:
         """Wait for the builds (started in __init__) and load them."""
@@ -623,56 +650,42 @@ class ParentKernels:
             log = proc.communicate()[0].decode(errors="replace")
             if proc.returncode:
                 raise AssertionError(f"parent {f} build failed:\n{log}")
-        ptr, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        argtypes = {
-            "topk": ("topk_scatter_f32", [ptr, ptr, ptr, ll, ll, ll, ptr,
-                                          ptr]),
-            "quantize": ("dequantize_i8_f32", [ptr, ptr, ptr, ll, ll, i32,
-                                               i32, ptr]),
-            "fedavg": ("fedavg_f32", [ptr, ptr, ptr, i32, ll, ptr])}
+        kinds = {"p": ctypes.c_void_p, "l": ctypes.c_longlong,
+                 "i": ctypes.c_int}
         self.fns = {}
-        for f in self.families:
-            name, types = argtypes[f]
-            fn = getattr(ctypes.CDLL(str(self.libs[f])), name)
-            fn.argtypes, fn.restype = types, i32
-            self.fns[f] = fn
-        say(f"  parent kernels built from {self.families or 'no family'} "
-            f"(the others' sources are unchanged)")
+        for kernel, (f, name, args) in self.KERNELS.items():
+            if f in self.families:
+                fn = getattr(ctypes.CDLL(str(self.libs[f])), name)
+                fn.argtypes = [kinds[a] for a in args]
+                fn.restype = ctypes.c_int
+                self.fns[kernel] = fn
+        say(f"  parent kernels built: {sorted(self.fns) or 'none'} (the "
+            f"others' sources are unchanged)")
 
-    @staticmethod
-    def _stream(t) -> int:
+    def _call(self, kernel: str, *args) -> None:
         import torch
-        return torch.cuda.current_stream(t.device).cuda_stream
-
-    def scatter(self, idx, vals, out, err) -> None:
-        rows, k = idx.shape
-        rc = self.fns["topk"](
-            idx.data_ptr(), vals.data_ptr(), out.data_ptr(), rows, k,
-            out.shape[1], err.data_ptr(), self._stream(idx))
+        rc = self.fns[kernel](*args, torch.cuda.current_stream().cuda_stream)
         if rc:
-            raise AssertionError(f"parent topk_scatter_f32: cudaError {rc}")
+            raise AssertionError(f"parent {kernel}: cudaError {rc}")
 
-    def fedavg(self, stack, w, out) -> None:
-        k, n = stack.shape
-        rc = self.fns["fedavg"](stack.data_ptr(), w.data_ptr(),
-                                out.data_ptr(), k, n, self._stream(stack))
-        if rc:
-            raise AssertionError(f"parent fedavg_f32: cudaError {rc}")
+    def gather(self, x, idx, out, err) -> None:
+        """``err``: (1,) int32, which the parent's launcher zeroes."""
+        rows, p = x.shape
+        self._call("topk_gather", x.data_ptr(), idx.data_ptr(),
+                   out.data_ptr(), rows, p, idx.shape[1], err.data_ptr())
 
-    def dequantize(self, q, scales, out, block) -> None:
-        rows, nb = scales.shape
-        rc = self.fns["quantize"](
-            q.data_ptr(), scales.data_ptr(), out.data_ptr(), rows,
-            out.shape[1], nb, block, self._stream(q))
-        if rc:
-            raise AssertionError(f"parent dequantize_i8_f32: cudaError {rc}")
+    def quantize(self, x, q, scales, block) -> None:
+        rows, n = x.shape
+        self._call("quantize", x.data_ptr(), q.data_ptr(), scales.data_ptr(),
+                   rows, n, scales.shape[1], block)
 
 
-def check_kernels(parent: ParentKernels | None = None):
+def recorder(rows: dict):
+    """``record``: times a kernel at one shape into ``rows`` (name ->
+    shape name -> its numbers)."""
     import torch
 
     dev = torch.device("cuda")
-    rows: dict[str, dict[str, dict]] = {}   # name -> shape name -> rec
 
     def record(name, key, shape, nbytes, flops, kernel_fn, plain_fn, lib_fn,
                err, launch_fn=None, peak_flops=PEAK_F32_FLOPS,
@@ -687,7 +700,7 @@ def check_kernels(parent: ParentKernels | None = None):
         time is taken just before and just after the others'.  A library
         call that a CUDA graph cannot capture (``lib_in_graph=False``) is
         timed on the device by ``device_ms_events``; the plain version's
-        graph holds ``plain_calls`` calls."""
+        graph holds ``plain_calls`` calls.  Returns the numbers kept."""
         bnd, by = bound_ms(nbytes, flops, peak_flops)
         n = max(1, nbytes // 2)
         src = torch.empty(n, dtype=torch.uint8, device=dev)
@@ -727,17 +740,26 @@ def check_kernels(parent: ParentKernels | None = None):
                 f"{k} {flops / t / 1e9:.1f} TFLOP/s ({bnd / t:.4f} of the "
                 f"bound)" for k, t in on_dev.items()
                 if t is not None and k != "copy_ms"))
-        rows.setdefault(name, {})[key] = {
+        rec = rows.setdefault(name, {})[key] = {
             "shape": list(shape), "ms": per_call["ms"],
             "plain_ms": per_call["plain_ms"],
             "library_ms": per_call["library_ms"], "bound_ms": bnd,
             "bound_by": by, "copy_bound_ms": per_call["copy_ms"],
             "bytes": nbytes, "flops": flops, "max_abs_err": err,
             "device": on_dev, "parent_device_ms": parent or None}
+        return rec
+    return record
 
 
-    check_fedavg(dev, record, parent)
+def check_kernels(parent: ParentKernels | None = None):
+    import torch
+
+    dev = torch.device("cuda")
+    rows: dict[str, dict[str, dict]] = {}   # name -> shape name -> rec
+    record = recorder(rows)
+    check_fedavg(dev, record)
     check_quantize(dev, record, parent)
+    check_quantize_edges(dev)
     check_dequantize_edges(dev)
     check_topk(dev, record, rows, parent)
     check_topk_edges(dev)
@@ -758,21 +780,6 @@ def _numpy_fold(stack_np, w_np):
     return acc
 
 
-def _fedavg_parent_fn(parent, stack, w, out):
-    """Under ``--parent``: the replaced launch into a buffer of its own,
-    held bitwise against this kernel's ``out`` first; else None."""
-    import torch
-    if parent is None or not parent.has("fedavg"):
-        return None
-    old = torch.empty_like(out)
-    parent.fedavg(stack, w, old)
-    torch.cuda.synchronize()
-    if not bits_equal(old, out):
-        raise AssertionError(f"fedavg {tuple(stack.shape)}: the parent's "
-                             f"kernel disagrees with this one")
-    return lambda: parent.fedavg(stack, w, old)
-
-
 def _fedavg_plan(stack, w):
     from repro_torch.kernels.fedavg import ops as fedavg_ops
     k, n = stack.shape
@@ -786,7 +793,7 @@ def _say_plan(stack, w) -> str:
             f"{p.blocks(stack.shape[1])} CTAs{stage}")
 
 
-def check_fedavg(dev, record, parent) -> None:
+def check_fedavg(dev, record) -> None:
     """Phase 2 for fedavg at SHAPES["fedavg"] and FEDAVG_SHAPES: each held
     bitwise against the plain version (and, but for "large", the numpy
     fold), its route printed, then timed (``record``); the edge cases K = 1,
@@ -821,7 +828,6 @@ def check_fedavg(dev, record, parent) -> None:
                None if k > FEDAVG_PLAIN_UNTIMED
                else lambda: fedavg_ref.fedavg(stack, w),
                lambda: w @ stack, err,
-               parent_fn=_fedavg_parent_fn(parent, stack, w, out),
                plain_calls=2 if k > FEDAVG_PLAIN_DEEP else 20)
         del stack, w, out
     torch.cuda.empty_cache()
@@ -874,38 +880,102 @@ def _dequantize_library(q, scales, n: int, block: int, want):
                            f"back to back between two events")
 
 
-def _record_dequantize(record, key, q, scales, n, block, out, parent) -> None:
+def _record_dequantize(record, key, q, scales, n, block, out) -> None:
     """Time dequantize at one shape (``out``: the kernel's output, already
-    held against the plain version), with the library yardstick and, under
-    ``--parent``, the launch it replaced."""
-    import torch
+    held against the plain version), with the library yardstick."""
     from repro_torch.kernels.quantize import ops as quant_ops
     from repro_torch.kernels.quantize import ref as quant_ref
     rows, nb = scales.shape
     lib_fn, lib_note = _dequantize_library(q, scales, n, block, out)
     say(f"  dequantize {(rows, n)} library yardstick "
         f"(per-channel quantized tensor .dequantize()): {lib_note}")
-    parent_fn = None
-    if parent is not None and parent.has("quantize"):
-        old = torch.empty_like(out)
-        parent.dequantize(q, scales, old, block)
-        torch.cuda.synchronize()
-        if not bits_equal(old, out):
-            raise AssertionError(f"dequantize {(rows, n)}: the parent's "
-                                 f"kernel disagrees with this one")
-        parent_fn = lambda: parent.dequantize(q, scales, old, block)  # noqa
     # Reads the n codes of a row that it expands and the scales, writes
     # the output; one multiply an element.
     record("dequantize", key, (rows, n), rows * n + 4 * rows * nb
            + 4 * rows * n, rows * n,
            lambda: quant_ops.dequantize(q, scales, n, block),
            lambda: quant_ref.dequantize(q, scales, n, block), lib_fn,
-           0.0, parent_fn=parent_fn, lib_in_graph=False)
+           0.0, lib_in_graph=False)
+
+
+def _quant_route(x, block: int) -> str:
+    """What ops.quantize_plan launches for ``x`` in blocks of ``block``."""
+    from repro_torch.kernels.quantize import ops as quant_ops
+    p = quant_ops.quantize_plan(*x.shape, block,
+                                quant_ops.is_aligned(x, block))
+    if p.route == "wide":
+        return f"route wide, a CTA a block, {p.grid} CTAs"
+    return (f"route {p.route}, {p.lanes} lanes a block, {p.units} float4 "
+            f"units a lane, {p.per_cta} blocks a CTA, {p.grid} CTAs, "
+            f"{'vector' if p.vector else 'scalar'} loads")
+
+
+def _quantize_parent_fn(parent, x, block: int, q, scales):
+    """Under ``--parent``: the replaced quantize into buffers of its own,
+    held bitwise against this kernel's ``q`` and ``scales`` first; else
+    None."""
+    import torch
+    if parent is None or not parent.has("quantize"):
+        return None
+    q_old, s_old = torch.empty_like(q), torch.empty_like(scales)
+    parent.quantize(x, q_old, s_old, block)
+    torch.cuda.synchronize()
+    if not (bits_equal(q_old, q) and bits_equal(s_old, scales)):
+        raise AssertionError(f"quantize {tuple(x.shape)} in blocks of "
+                             f"{block}: the parent's kernel disagrees")
+    return lambda: parent.quantize(x, q_old, s_old, block)
+
+
+def _record_quantize(record, key, x, block, q, scales, parent,
+                     plain_calls=20) -> None:
+    """Time quantize at one shape (``q``, ``scales``: the kernel's output,
+    already held), under ``--parent`` beside the launch it replaced; then
+    a line with the plan's route and the share of the bound."""
+    from repro_torch.kernels.quantize import ops as quant_ops
+    from repro_torch.kernels.quantize import ref as quant_ref
+    r, n = x.shape
+    nb = scales.shape[1]
+    # quantize reads x and writes every code (padding included) and
+    # scale; |x|, max, divide, round, two clamps per element (the padded
+    # lanes need none of it).
+    rec = record("quantize", key, (r, n), 4 * r * n + r * nb * block
+                 + 4 * r * nb, 6 * r * n,
+                 lambda: quant_ops.quantize(x, block),
+                 lambda: quant_ref.quantize(x, block), None, 0.0,
+                 parent_fn=_quantize_parent_fn(parent, x, block, q, scales),
+                 plain_calls=plain_calls)
+    t = rec["device"]["ms"]
+    say(f"  quantize {(r, n)} in blocks of {block}: "
+        f"{_quant_route(x, block)}; device {t:.6f} ms, "
+        f"{rec['bound_ms'] / t:.3f} of the bound")
+
+
+def _hold_quantize(x, block: int, what: str):
+    """quantize(x) on the card, bitwise against the plain version and
+    numpy's quantize_int8_batch (on x's host copy); returns (q, scales)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import compression
+    from repro_torch.kernels.quantize import ops as quant_ops
+    from repro_torch.kernels.quantize import ref as quant_ref
+    q, s = quant_ops.quantize(x, block)
+    q_ref, s_ref = quant_ref.quantize(x, block)
+    torch.cuda.synchronize()
+    if not (bits_equal(q, q_ref) and bits_equal(s, s_ref)):
+        raise AssertionError(f"quantize {what}: kernel != plain")
+    del q_ref, s_ref
+    q_np, s_np = compression.quantize_int8_batch(x.cpu().numpy(), block)
+    if not (np.array_equal(q.cpu().numpy(), q_np)
+            and bits_equal(s.cpu(), torch.from_numpy(s_np))):
+        raise AssertionError(f"quantize {what}: kernel != numpy host path")
+    return q, s
 
 
 def check_quantize(dev, record, parent) -> None:
     """Phase 2 for quantize and dequantize at SHAPES["quantize"] (blocks of
-    BLOCK) and QUANT_WIRE."""
+    BLOCK) and QUANT_WIRE, then quantize at QUANT_LEAVES: each held bitwise
+    against the plain version and numpy, its route printed, timed (under
+    ``--parent`` beside the replaced kernel)."""
     import numpy as np
     import torch
     from repro_torch.core import compression
@@ -914,44 +984,26 @@ def check_quantize(dev, record, parent) -> None:
 
     shapes = {key: (r, n, BLOCK) for key, (r, n) in SHAPES["quantize"].items()}
     for key, (r, n, block) in dict(shapes, **QUANT_WIRE).items():
-        host_data = key != "large"
-        if host_data:
-            x_np = np.random.default_rng(2).standard_normal(
-                (r, n)).astype(np.float32)
-            x = torch.from_numpy(x_np).to(dev)
+        if key != "large":
+            x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+                (r, n)).astype(np.float32)).to(dev)
         else:
             gen = torch.Generator(device=dev).manual_seed(3)
             x = torch.randn((r, n), generator=gen, device=dev)
-        nb = -(-n // block)
-        q, s = quant_ops.quantize(x, block)
-        q_ref, s_ref = quant_ref.quantize(x, block)
+        q, s = _hold_quantize(x, block, f"{r}x{n}")
         deq = quant_ops.dequantize(q, s, n, block)
         deq_ref = quant_ref.dequantize(q, s, n, block)
         torch.cuda.synchronize()
-        if not (bits_equal(q, q_ref) and bits_equal(s, s_ref)):
-            raise AssertionError(f"quantize {r}x{n}: kernel != plain")
         if not bits_equal(deq, deq_ref):
             raise AssertionError(f"dequantize {r}x{n}: kernel != plain")
-        if host_data:
-            q_np, s_np = compression.quantize_int8_batch(x_np, block)
-            if not (np.array_equal(q.cpu().numpy(), q_np)
-                    and bits_equal(s.cpu(), torch.from_numpy(s_np))):
-                raise AssertionError("quantize: kernel != numpy host path")
-            d_np = compression.dequantize_int8_batch(q_np, s_np, n, block)
-            if not bits_equal(deq.cpu(), torch.from_numpy(d_np)):
-                raise AssertionError("dequantize: kernel != numpy host path")
-        qerr = max(float((q.int() - q_ref.int()).abs().max()),
-                   float((s - s_ref).abs().max()))
-        # quantize reads x and writes every code (padding included) and
-        # scale; |x|, max, divide, round, two clamps per element (the
-        # padded lanes need none of it).
-        qbytes = 4 * r * n + r * nb * block + 4 * r * nb
+        d_np = compression.dequantize_int8_batch(q.cpu().numpy(),
+                                                 s.cpu().numpy(), n, block)
+        if not bits_equal(deq.cpu(), torch.from_numpy(d_np)):
+            raise AssertionError("dequantize: kernel != numpy host path")
         say(f"  quantize / dequantize {(r, n)} in blocks of {block}: kernel "
-            f"== plain{' == numpy host path' if host_data else ''}")
-        record("quantize", key, (r, n), qbytes, 6 * r * n,
-               lambda: quant_ops.quantize(x, block),
-               lambda: quant_ref.quantize(x, block), None, qerr)
-        _record_dequantize(record, key, q, s, n, block, deq, parent)
+            f"== plain == numpy host path")
+        _record_quantize(record, key, x, block, q, s, parent)
+        _record_dequantize(record, key, q, s, n, block, deq)
     # The fleet path decodes int8 after topk: one client's kept values at
     # each tier's length (its error-feedback decode).
     for tier, k in TIER_K.items():
@@ -963,8 +1015,84 @@ def check_quantize(dev, record, parent) -> None:
         if not bits_equal(deq.cpu(), torch.from_numpy(
                 compression.dequantize_int8_batch(q_np, s_np, k, BLOCK))):
             raise AssertionError(f"dequantize 1x{k}: kernel != numpy")
-        _record_dequantize(record, f"client_{tier}", q, s, k, BLOCK, deq,
-                           parent)
+        _record_dequantize(record, f"client_{tier}", q, s, k, BLOCK, deq)
+    # The pod aggregation's rows: one leaf of each width.
+    for key, (r, n, block) in QUANT_LEAVES.items():
+        gen = torch.Generator(device=dev).manual_seed(r + n)
+        x = torch.randn((r, n), generator=gen, device=dev)
+        q, s = _hold_quantize(x, block, f"{r}x{n}")
+        say(f"  quantize {(r, n)} in blocks of {block}: kernel == plain == "
+            f"numpy host path")
+        _record_quantize(record, key, x, block, q, s, parent, plain_calls=2)
+        del x, q, s
+        torch.cuda.empty_cache()
+
+
+# Quantize's edge cases (rows, n, block, offset): n % 4 = 1, 2, 3 and 0
+# over several rows (rows after the first start off the 16-byte grid:
+# scalar loads), blocks of 1, 7 and 1000, rows past a grid's 65,535, x
+# one float into its buffer (off the 16-byte grid), and block sizes that
+# reach each kernel of ops.QUANT_KERNELS and the wide route: each over a
+# few rows (the short route) and over more rows than the card's threads
+# hold (narrow and row), with n % 4 = 1 (scalar loads) and with n % 4 = 0
+# and a ragged last block (vector loads).
+QUANT_EDGE_BLOCKS = (4, 7, 16, 32, 64, 128, 256, 512, 700, 1024, 1536,
+                     2048, 3000, 4096, 5504, 8192, 10_000)
+
+
+def _rows_past_the_card(block: int) -> int:
+    """Rows of 3 blocks that need more threads than the card holds at one
+    float4 unit a lane (up to 256 lanes a block): a call paced by its
+    bytes, which takes the narrow or row route, not the short one."""
+    spread = min(256, 1 << (-(-block // 4) - 1).bit_length())
+    return 132 * 8 * 256 // (3 * spread) + 1
+
+
+QUANT_EDGES = ([(3, 25_449, 1024, 0), (3, SLICE_N, 1024, 0),
+                (3, 25_451, 1024, 0), (3, 25_452, 1024, 0), (2, 3, 1, 0),
+                (5, 2999, 7, 0), (5, 3001, 1000, 0), (65_537, 9, 7, 0),
+                (65_537, 64, 64, 0), (3, 4096, 1024, 1), (5, 2999, 7, 1),
+                (4, 1600, 1600, 1)]
+               + [(rows, 2 * b + 5, b, 0) for b in QUANT_EDGE_BLOCKS
+                  for rows in (3, _rows_past_the_card(b))]
+               + [(rows, 3 * b - 4, b, 0) for b in QUANT_EDGE_BLOCKS
+                  for rows in (2, _rows_past_the_card(b))])
+
+
+def check_quantize_edges(dev) -> None:
+    """Quantize at QUANT_EDGES, bitwise against the plain version and
+    numpy; every kernel of ops.QUANT_KERNELS, the wide route and both
+    loads must be reached."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.quantize import ops as quant_ops
+
+    rng = np.random.default_rng(18)
+    reached = set()
+    for rows, n, block, offset in QUANT_EDGES:
+        x_np = rng.standard_normal((rows, n)).astype(np.float32)
+        x_np[:, ::97] *= 40.0                  # uneven block ranges
+        buf = torch.zeros(rows * n + offset, device=dev)
+        buf[offset:] = torch.from_numpy(x_np.reshape(-1)).to(dev)
+        x = buf[offset:].view(rows, n)
+        if offset and x.data_ptr() % 16 == 0:
+            raise AssertionError("quantize edge: x on the grid")
+        p = quant_ops.quantize_plan(rows, n, block,
+                                    quant_ops.is_aligned(x, block))
+        reached.add((p.route, p.lanes, p.units, p.vector))
+        _hold_quantize(x, block, f"edge {(rows, n)} block {block} offset "
+                       f"{offset}")
+    kernels_hit = {(g, u) for route, g, u, _ in reached if route != "wide"}
+    if (kernels_hit != set(quant_ops.QUANT_KERNELS)
+            or {r[0] for r in reached} != {"short", "narrow", "row", "wide"}
+            or {r[3] for r in reached if r[0] != "wide"} != {True, False}):
+        raise AssertionError(f"quantize edges reached only {sorted(reached)}")
+    say(f"  quantize edges ({len(QUANT_EDGES)} cases: n % 4 = 1, 2, 3 over "
+        f"several rows, blocks 1, 7, 1000, each of the "
+        f"{len(quant_ops.QUANT_KERNELS)} (lanes, units) kernels of the "
+        f"short, narrow and row routes and the wide route by vector and "
+        f"scalar loads, 65,537 rows, x one float off the 16-byte grid): "
+        f"kernel == plain == numpy")
 
 
 # Dequantize's edge cases (rows, n, block): rows >= 2 at n mod 4 = 1, 2, 3
@@ -1053,12 +1181,10 @@ def check_lm_fl_kernels(dev, record, parent=None) -> None:
     record("fedavg", "lm_fl", (k, n), 4 * k * n + 4 * k + 4 * n, 2 * k * n,
            lambda: fedavg_ops.fedavg(stack, w),
            lambda: fedavg_ref.fedavg(stack, w),
-           lambda: w @ stack, err,
-           parent_fn=_fedavg_parent_fn(parent, stack, w, out))
+           lambda: w @ stack, err)
     del out
     x = stack[:1].clone()
     del stack
-    nb = -(-n // BLOCK)
     q, sc = quant_ops.quantize(x, BLOCK)
     q_ref, s_ref = quant_ref.quantize(x, BLOCK)
     deq = quant_ops.dequantize(q, sc, n, BLOCK)
@@ -1068,10 +1194,8 @@ def check_lm_fl_kernels(dev, record, parent=None) -> None:
             and bits_equal(deq, deq_ref)):
         raise AssertionError(f"quantize/dequantize 1x{n}: kernel != plain")
     del q_ref, s_ref, deq_ref
-    record("quantize", "lm_fl", (1, n), 4 * n + nb * BLOCK + 4 * nb, 6 * n,
-           lambda: quant_ops.quantize(x, BLOCK),
-           lambda: quant_ref.quantize(x, BLOCK), None, 0.0)
-    _record_dequantize(record, "lm_fl", q, sc, n, BLOCK, deq, parent)
+    _record_quantize(record, "lm_fl", x, BLOCK, q, sc, parent)
+    _record_dequantize(record, "lm_fl", q, sc, n, BLOCK, deq)
     del x, q, sc, deq
     torch.cuda.empty_cache()
 
@@ -1200,15 +1324,32 @@ def check_topk(dev, record, records, parent=None) -> None:
             raise AssertionError("topk_gather: kernel != numpy host path")
         idx64 = idx.long()
         buf = torch.empty_like(out)
-        err = torch.empty(1, dtype=torch.int32, device=dev)
+        flag = torch.zeros(1, dtype=torch.int64, device=dev)
+        stamp = topk_ops.GATHER_FLAGS.stamp()
+        parent_fn = None
+        if parent is not None and parent.has("topk_gather"):
+            old = torch.empty_like(out)
+            err = torch.empty(1, dtype=torch.int32, device=dev)
+            parent.gather(x, idx, old, err)
+            torch.cuda.synchronize()
+            if not bits_equal(old, out) or int(err.item()):
+                raise AssertionError(f"topk_gather {rows}x{n}->{k}: the "
+                                     f"parent's kernel disagrees")
+            parent_fn = lambda: parent.gather(x, idx, old, err)  # noqa
         # Reads idx and the kept values of x, writes the kept values.
-        record("topk_gather", key, (rows, n, k), 12 * rows * k, 0,
-               lambda: topk_ops.topk_gather(x, idx),
-               lambda: topk_ref.gather(x, idx),
-               lambda: torch.gather(x, 1, idx64),
-               float((out - plain).abs().max()),
-               launch_fn=lambda: topk_ops._launch_gather(x, idx, buf, err))
-        _gather_sector_bound(records["topk_gather"][key], idx, n)
+        rec = record("topk_gather", key, (rows, n, k), 12 * rows * k, 0,
+                     lambda: topk_ops.topk_gather(x, idx),
+                     lambda: topk_ref.gather(x, idx),
+                     lambda: torch.gather(x, 1, idx64),
+                     float((out - plain).abs().max()),
+                     launch_fn=lambda: topk_ops._launch_gather(
+                         x, idx, buf, flag, stamp), parent_fn=parent_fn)
+        say(f"    topk_gather {(rows, n, k)}: device {rec['device']['ms']:.6f}"
+            f" ms, torch.gather {rec['device']['library_ms']:.6f} ms (the "
+            f"kernel {rec['device']['ms'] / rec['device']['library_ms']:.3f}"
+            f"x its time)")
+        _gather_sector_bound(rec, idx, n)
+    check_gather_flags(dev, parent)
 
     for key, (rows, n, k) in TOPK_SHAPES["topk_scatter"].items():
         x, idx, x_np, idx_np = _topk_inputs(dev, key, rows, n, k, 5)
@@ -1229,16 +1370,6 @@ def check_topk(dev, record, records, parent=None) -> None:
         idx64 = idx.long()
         buf = torch.empty_like(out)
         scratch = topk_ops.scatter_scratch(rows, dev)
-        parent_fn = None
-        if parent is not None and parent.has("topk"):
-            old = torch.empty_like(out)
-            err = torch.empty(1, dtype=torch.int32, device=dev)
-            parent.scatter(idx, vals, old, err)
-            torch.cuda.synchronize()
-            if not bits_equal(old, out):
-                raise AssertionError(f"topk_scatter {rows}x{k}->{n}: the "
-                                     f"parent's kernel disagrees")
-            parent_fn = lambda: parent.scatter(idx, vals, old, err)  # noqa
         say(f"  topk_scatter {(rows, k, n)}: {topk_ops.scatter_tile(rows, n)}"
             f" columns a CTA")
         # Reads idx and vals, writes the whole dense output.
@@ -1250,7 +1381,106 @@ def check_topk(dev, record, records, parent=None) -> None:
                    1, idx64, vals),
                float((out - plain).abs().max()),
                launch_fn=lambda: topk_ops._launch_scatter(
-                   idx, vals, buf, scratch), parent_fn=parent_fn)
+                   idx, vals, buf, scratch))
+
+
+def graph_node_types(fn) -> list[str]:
+    """The nodes of a CUDA graph captured (through the driver API) from
+    ``fn()`` on a side stream: "kernel", "memset", "memcpy" or the
+    driver's node type number."""
+    import ctypes
+
+    import torch
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc, what):
+        if rc:
+            raise AssertionError(f"{what}: CUresult {rc}")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    handle = ctypes.c_void_p(side.cuda_stream)
+    graph = ctypes.c_void_p()
+    with torch.cuda.stream(side):
+        # CU_STREAM_CAPTURE_MODE_RELAXED
+        check(cu.cuStreamBeginCapture_v2(handle, ctypes.c_int(2)),
+              "cuStreamBeginCapture")
+        try:
+            fn()
+        finally:
+            check(cu.cuStreamEndCapture(handle, ctypes.byref(graph)),
+                  "cuStreamEndCapture")
+    try:
+        count = ctypes.c_size_t(0)
+        check(cu.cuGraphGetNodes(graph, None, ctypes.byref(count)),
+              "cuGraphGetNodes")
+        nodes = (ctypes.c_void_p * count.value)()
+        check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(count)),
+              "cuGraphGetNodes")
+        names = {0: "kernel", 1: "memcpy", 2: "memset"}
+        out = []
+        for node in nodes:
+            kind = ctypes.c_int(-1)
+            check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                        ctypes.byref(kind)),
+                  "cuGraphNodeGetType")
+            out.append(names.get(kind.value, str(kind.value)))
+        return out
+    finally:
+        check(cu.cuGraphDestroy(graph), "cuGraphDestroy")
+
+
+def check_gather_flags(dev, parent=None) -> None:
+    """The gather's bad-index contract without a zeroed flag: the calls
+    good, bad, good, bad, bad on one stream raise exactly at the bad ones
+    (a stale stamp raises nothing; a bad call right after another
+    raises), each good call's values equal to the plain version's; and a
+    call is one node of a CUDA graph, a kernel (under ``--parent`` the
+    replaced launcher's nodes are printed beside it)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.topk import ops as topk_ops
+    from repro_torch.kernels.topk import ref as topk_ref
+
+    rng = np.random.default_rng(23)
+    x = torch.from_numpy(rng.standard_normal((4, SLICE_N)).astype(
+        np.float32)).to(dev)
+    good = np.stack([np.sort(rng.choice(SLICE_N, 1018, replace=False))
+                     for _ in range(4)]).astype(np.int32)
+    bad = good.copy()
+    bad[2, 500] = SLICE_N
+    idx = {"good": torch.from_numpy(good).to(dev),
+           "bad": torch.from_numpy(bad).to(dev)}
+    raised = []
+    for kind in ("good", "bad", "good", "bad", "bad"):
+        try:
+            out = topk_ops.topk_gather(x, idx[kind])
+        except IndexError:
+            raised.append(True)
+            continue
+        raised.append(False)
+        if not bits_equal(out, topk_ref.gather(x, idx[kind])):
+            raise AssertionError("topk_gather after a bad call: kernel != "
+                                 "plain")
+    if raised != [False, True, False, True, True]:
+        raise AssertionError(f"topk_gather good, bad, good, bad, bad "
+                             f"raised {raised}")
+    out = torch.empty((4, 1018), device=dev)
+    flag = torch.zeros(1, dtype=torch.int64, device=dev)
+    stamp = topk_ops.GATHER_FLAGS.stamp()
+    torch.cuda.synchronize()
+    nodes = graph_node_types(lambda: [topk_ops._launch_gather(
+        x, idx["good"], out, flag, stamp) for _ in range(3)])
+    if nodes != ["kernel"] * 3:
+        raise AssertionError(f"topk_gather: 3 calls captured as {nodes}")
+    old = ""
+    if parent is not None and parent.has("topk_gather"):
+        err = torch.empty(1, dtype=torch.int32, device=dev)
+        old = graph_node_types(
+            lambda: parent.gather(x, idx["good"], out, err))
+        old = f" (the parent's launcher: {old})"
+    say(f"  topk_gather bad-index sequence good, bad, good, bad, bad: raised "
+        f"{raised}, each good call == plain; 3 calls captured in a CUDA "
+        f"graph: {nodes}{old}")
 
 
 def _scatter_holds(dev, label, idx_np, vals_np, n) -> None:
@@ -3246,19 +3476,16 @@ def _hold_fedavg_calls(label: str, calls) -> dict:
                        key=lambda kv: -int(kv[0].split("x")[0])))
 
 
-def _time_fedavg(stack, w, out, parent=None) -> dict:
-    """fedavg at one of the flow path's stacks (``out``: the kernel's
-    output there): its route, the kernel per call and on the device (20
-    launches in one CUDA graph), its plain version and ``w @ stack`` on the
-    device, the bound (bytes / 3.35 TB/s) and, under ``--parent``, the
-    replaced kernel on the device just before and just after this one."""
+def _time_fedavg(stack, w) -> dict:
+    """fedavg at one of the flow path's stacks: its route, the kernel per
+    call and on the device (20 launches in one CUDA graph), its plain
+    version and ``w @ stack`` on the device, and the bound (bytes / 3.35
+    TB/s)."""
     from repro_torch.kernels.fedavg import ops as fedavg_ops
     from repro_torch.kernels.fedavg import ref as fedavg_ref
     k, n = stack.shape
     nbytes = 4 * k * n + 4 * k + 4 * n
     bnd, by = bound_ms(nbytes, 2 * k * n)
-    parent_fn = _fedavg_parent_fn(parent, stack, w, out)
-    before = device_ms(parent_fn) if parent_fn else None
     rec = {"shape": [k, n], "bytes": nbytes, "bound_ms": bnd,
            "bound_by": by,
            "route": _fedavg_plan(stack, w)._asdict(),
@@ -3268,31 +3495,24 @@ def _time_fedavg(stack, w, out, parent=None) -> dict:
                lambda: fedavg_ref.fedavg(stack, w), calls=2),
            "library_device_ms": device_ms(lambda: w @ stack)}
     rec["share_of_bound"] = bnd / rec["device_ms"]
-    if parent_fn:
-        rec["parent_device_ms"] = [before, device_ms(parent_fn)]
     say(f"    fedavg {k}x{n} ({_say_plan(stack, w)}): device "
         f"{rec['device_ms']:.6f} ms (per call {rec['ms']:.6f}), bound "
         f"{bnd:.6f} ms ({by}, {rec['share_of_bound']:.4f} of it); plain "
         f"version {rec['plain_device_ms']:.6f} ms; w @ stack "
         f"{rec['library_device_ms']:.6f} ms (kernel "
         f"{rec['device_ms'] / rec['library_device_ms']:.2f}x its time)")
-    if parent_fn:
-        old = rec["parent_device_ms"]
-        say(f"      parent's kernel on the device: {old[0]:.6f} / "
-            f"{old[1]:.6f} ms (before / after); this one "
-            f"{rec['device_ms'] / statistics.mean(old):.3f} of it")
     return rec
 
 
-def run_flow_fleet(parent=None) -> dict:
+def run_flow_fleet() -> dict:
     """Phase 12: (a) the small flow runs of ``repro_torch.fleet_scale``
     against the reference's pins; (b) 10,000 clients for 2 rounds and
     100,000 for 1 under ``--engine flow --topology hier --cells 32
     --transports mudp`` against their pins, with fedavg's launches and
     calls by shape, every call held bitwise, and one profiled round at
     10,000 clients; (c) the flow gate at 1,024 clients; (d) fedavg timed
-    at the (K, 2048) stacks (b) launched, beside its bound, ``w @ stack``
-    and (``parent``) the kernel it replaced."""
+    at the (K, 2048) stacks (b) launched, beside its bound and ``w @
+    stack``."""
     from repro_torch import fleet_scale, kernels
     out: dict = {"pins": {}, "scale": {}}
     t0 = time.perf_counter()
@@ -3381,8 +3601,8 @@ def run_flow_fleet(parent=None) -> dict:
         root = [c for c in calls if c[0].shape[0] == 32][:1]
         picks = ([cells[-1], cells[len(cells) // 2], cells[0]]
                  if cells else []) + root
-        for stack, w, kept in picks:
-            rec = _time_fedavg(stack, w, kept, parent)
+        for stack, w, _ in picks:
+            rec = _time_fedavg(stack, w)
             timed.append(dict(rec, run=label))
     out["fedavg"] = timed
     out["phase_s"] = time.perf_counter() - t0
@@ -3670,12 +3890,13 @@ def _swapped_fl_aggregate(mode: str, fedavg, quantize, dequantize):
     return fl_mesh.make_fl_aggregate(fl_mesh.client_mesh(), mode=mode), undo
 
 
-def _timed_kernel_ms(mode: str, stacked) -> dict:
+def _timed_kernel_ms(mode: str, stacked, quantize=None) -> dict:
     """Two more aggregations, the second with each kernel call between two
     CUDA events on the stream (the wrapper places nothing else on the
     card; the first leaves the allocator holding every buffer, so no
     ``cudaMalloc`` stalls between the events): per kernel, (device ms
-    summed over its calls, calls)."""
+    summed over its calls, calls).  ``quantize``: a stand-in for the
+    quantize wrapper (the parent's kernel)."""
     import torch
     from repro_torch.kernels.fedavg import ops as fedavg_ops
     from repro_torch.kernels.quantize import ops as quant_ops
@@ -3693,7 +3914,7 @@ def _timed_kernel_ms(mode: str, stacked) -> dict:
         return call
     agg, undo = _swapped_fl_aggregate(
         mode, timed("fedavg", fedavg_ops.fedavg),
-        timed("quantize", quant_ops.quantize),
+        timed("quantize", quantize or quant_ops.quantize),
         timed("dequantize", quant_ops.dequantize))
     try:
         agg(stacked)
@@ -3707,7 +3928,22 @@ def _timed_kernel_ms(mode: str, stacked) -> dict:
             for name, ev in events.items() if ev}
 
 
-def run_pod_aggregation(dev: str = "cuda", cfg=None) -> dict:
+def _parent_quantize(parent):
+    """The parent's quantize kernel behind the wrapper's signature."""
+    import torch
+
+    def quantize(x, block):
+        rows, n = x.shape
+        nb = -(-n // block)
+        q = torch.empty((rows, nb * block), dtype=torch.int8, device=x.device)
+        scales = torch.empty((rows, nb), dtype=torch.float32,
+                             device=x.device)
+        parent.quantize(x, q, scales, block)
+        return q, scales
+    return quantize
+
+
+def run_pod_aggregation(dev: str = "cuda", cfg=None, parent=None) -> dict:
     """(a) POD_ARCH's seeded parameters stacked for POD_COUNT pods, each
     with its own seeded perturbation, aggregated by
     ``make_fl_aggregate(mode="exact")`` and ``"int8"`` on the card, each
@@ -3823,6 +4059,20 @@ def run_pod_aggregation(dev: str = "cuda", cfg=None) -> dict:
             say(f"    {name}: device {ms:.6f} ms over {n} calls; bound "
                 f"{bound:.6f} ms ({by}: {nbytes} B, {flops} float32 "
                 f"operations; {bound / ms if ms else 0:.3f} of it)")
+        if mode == "int8" and parent is not None and parent.has("quantize"):
+            # in turns: parent, this, this, parent
+            old_q = _parent_quantize(parent)
+            turns, calls = zip(*(_timed_kernel_ms(mode, stacked,
+                                                  q)["quantize"]
+                                 for q in (old_q, None, None, old_q)))
+            rec = kernel_ms["quantize"]
+            rec.update(parent_device_ms=turns[::3], turns_ms=turns[1:3])
+            ratio = statistics.mean(turns[1:3]) / statistics.mean(turns[::3])
+            say(f"    parent's quantize: device {turns[0]:.6f} / "
+                f"{turns[3]:.6f} ms over its {calls[0]} calls (before / "
+                f"after); this one {turns[1]:.6f} / {turns[2]:.6f} between "
+                f"them ({rec['device_ms']:.6f} above), {ratio:.3f} of it; "
+                f"bound {rec['bound_ms']:.6f} ms")
         out["modes"][mode] = {"wall_s": wall, "launches": launches,
                               "calls_by_shape": by_shape,
                               "bytes_sent_per_pod": send[mode],
@@ -3908,13 +4158,14 @@ def run_dryrun_cells(lm: dict, train_rec: dict) -> list[dict]:
     return out
 
 
-def run_mesh_tooling(lm: dict, train_rec: dict) -> dict:
-    """Phase 14: (a) the pod aggregation, (b) the dry-run against the
-    card, (c) the dry-run and roofline entry points as subprocesses."""
+def run_mesh_tooling(lm: dict, train_rec: dict, parent=None) -> dict:
+    """Phase 14: (a) the pod aggregation (under ``--parent`` also with the
+    replaced quantize), (b) the dry-run against the card, (c) the dry-run
+    and roofline entry points as subprocesses."""
     t_phase = time.perf_counter()
     say(f"  (a) pod aggregation: {POD_ARCH} x {POD_COUNT} pods, exact and "
         f"int8")
-    pods = run_pod_aggregation()
+    pods = run_pod_aggregation(parent=parent)
     say("  (b) the dry-run's estimates of phases 6-8's cells")
     cells = run_dryrun_cells(lm, train_rec)
     say("  (c) the entry points")
@@ -3973,12 +4224,27 @@ def _say_wgmma_resources() -> None:
                                  f"{mine}")
 
 
+def _say_spill_free(label: str, by_kernel: dict[str, list[str]]) -> None:
+    """Print each kernel's ptxas lines; fail on a spill or a kernel with
+    none."""
+    for entry, mine in sorted(by_kernel.items()):
+        say(f"  {entry}: {'; '.join(mine)}")
+        spills = [int(n) for line in mine
+                  for n in re.findall(r"(\d+) bytes spill", line)]
+        if not spills or any(spills):
+            raise AssertionError(f"{label} {entry}: spills, or no ptxas "
+                                 f"lines: {mine}")
+
+
 def _say_fl_resources() -> None:
     """The top-k scatter's and dequantize's ptxas registers and spills, and
     their shared memory a CTA: the scatter's tile is dynamic, (tile + 4)
-    floats, at its path and large shapes.  Then each fedavg kernel's
-    registers, spills and static shared memory; fails on a spill."""
+    floats, at its path and large shapes.  Then the registers, spills and
+    static shared memory of the gather, of each quantize kernel (every
+    (lanes, units) of ops.QUANT_KERNELS and the wide route) and of each
+    fedavg kernel; fails on a spill or a missing kernel."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels.quantize import ops as quant_ops
     from repro_torch.kernels.topk import ops as topk_ops
     tiles = {key: topk_ops.scatter_tile(rows, n) for key, (rows, n, _)
              in TOPK_SHAPES["topk_scatter"].items()}
@@ -3990,23 +4256,33 @@ def _say_fl_resources() -> None:
         lines = _ptxas_lines((_build.BUILD_DIR / f"{fam}.log").read_text())
         mine = [line for entry, line in lines if entry.startswith(kernel)]
         say(f"  {kernel}: {'; '.join(mine)}; {smem}")
+
+    def kernels_of(fam: str, prefix: str = "") -> dict[str, list[str]]:
+        by_kernel: dict[str, list[str]] = {}
+        for entry, line in _ptxas_lines(
+                (_build.BUILD_DIR / f"{fam}.log").read_text()):
+            if entry.startswith(prefix):
+                by_kernel.setdefault(entry, []).append(line)
+        return by_kernel
+    # the gather and every quantize kernel: no spills
+    gather = kernels_of("topk", "gather_kernel")
+    quant = kernels_of("quantize", "quantize_")
+    want = {f"quantize_lanes_kernel<{g},{u}>"
+            for g, u in quant_ops.QUANT_KERNELS} | {"quantize_wide_kernel<>"}
+    if len(gather) != 1 or not want <= set(quant):
+        raise AssertionError(f"ptxas lines for {sorted(gather)} and "
+                             f"{sorted(quant)}, not the gather and "
+                             f"{sorted(want)}")
+    _say_spill_free("topk", gather)
+    _say_spill_free("quantize", quant)
     # fedavg: the wide kernel and each tile and stage size of the two tall
     # ones (their ring is static shared memory, on ptxas's "bytes smem");
     # no spills.
-    by_kernel: dict[str, list[str]] = {}
-    for entry, line in _ptxas_lines(
-            (_build.BUILD_DIR / "fedavg.log").read_text()):
-        by_kernel.setdefault(entry, []).append(line)
-    if len(by_kernel) != 19:
-        raise AssertionError(f"fedavg: ptxas lines for {sorted(by_kernel)}, "
+    fedavg = kernels_of("fedavg")
+    if len(fedavg) != 19:
+        raise AssertionError(f"fedavg: ptxas lines for {sorted(fedavg)}, "
                              f"not the 19 kernels")
-    for entry, mine in sorted(by_kernel.items()):
-        say(f"  {entry}: {'; '.join(mine)}")
-        spills = [int(n) for line in mine
-                  for n in re.findall(r"(\d+) bytes spill", line)]
-        if not spills or any(spills):
-            raise AssertionError(f"{entry}: spills, or no ptxas lines: "
-                                 f"{mine}")
+    _say_spill_free("fedavg", fedavg)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -4018,9 +4294,9 @@ def main(argv: list[str] | None = None) -> int:
     from repro_torch.kernels import _build
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR",
-                    help="a checkout from before the top-k scatter, "
-                         "dequantize and fedavg redesigns: phases 2 and "
-                         "12(d) also time its kernels beside these, in "
+                    help="a checkout from before the quantize and top-k "
+                         "gather redesigns: phases 2 and "
+                         "14(a) also time its kernels beside these, in "
                          "turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -4124,7 +4400,7 @@ def main(argv: list[str] | None = None) -> int:
     say("[12] the flow engine at fleet scale: repro_torch.fleet_scale "
         "--engine flow, small pins, 10,000 and 100,000 clients, the flow "
         "gate, fedavg at the path's stacks")
-    flow_fleet = run_flow_fleet(parent)
+    flow_fleet = run_flow_fleet()
     say(f"  phase 12: {flow_fleet['phase_s']:.3f} s")
 
     say("[13] the paper's experiment and the reference's benchmark gates: "
@@ -4137,7 +4413,7 @@ def main(argv: list[str] | None = None) -> int:
     say(f"[14] the mesh tooling: the pod-axis FL aggregation ({POD_ARCH} x "
         f"{POD_COUNT} pods, exact and int8), the dry-run against phases "
         f"6-8, the dry-run and roofline entry points")
-    mesh = run_mesh_tooling(lm, train_rec)
+    mesh = run_mesh_tooling(lm, train_rec, parent)
     say(f"  phase 14: {mesh['phase_s']:.3f} s")
 
     # Each kernel's launches on its own path: slice 1's kernels on phase

@@ -2,13 +2,15 @@
 stage's batch layout, with the block size as an argument).
 
 On CUDA tensors they launch ``csrc/quantize.cu`` (bit-identical to the
-host numpy codec); on CPU tensors they run the plain versions in
+host numpy codec), quantize by the route :func:`quantize_plan` picks; on
+CPU tensors they run the plain versions in
 :mod:`repro_torch.kernels.quantize.ref`.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -17,8 +19,89 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.quantize import ref
 
 _LIB = None
-_MAX_CTAS = (1 << 31) - 1     # quantize runs one CTA per (row, block)
+_MAX_BLOCKS = (1 << 31) - 1   # quantize's blocks: 32-bit block indices
 _MAX_DEQUANT_N = (1 << 31) - (1 << 24)  # dequantize's 32-bit columns
+#: the H100's SMs, and the quantize CTAs (256 threads) an SM holds at most
+SMS, CTAS_A_SM = 132, 8
+QUANT_THREADS = 256
+#: the threads the card holds at once: a call whose blocks, at one unit a
+#: lane, need no more takes the short route
+CARD_THREADS = SMS * CTAS_A_SM * QUANT_THREADS
+#: blocks of at most NARROW_MAX values take a few lanes each (narrow), of
+#: at most ROW_MAX a warp or a few (row), both from registers; longer
+#: blocks a CTA each, read twice (wide)
+NARROW_MAX, ROW_MAX = 128, 8192
+#: float4 units a lane may hold on the row route (and, past one, short)
+ROW_UNITS = (2, 4, 6, 8)
+#: the (lanes, units) instantiations of ``quantize_lanes_kernel``: short,
+#: then narrow, then row
+QUANT_KERNELS = ((1, 1), (2, 1), (4, 1), (8, 1), (16, 1), (32, 1), (64, 1),
+                 (128, 1), (256, 1), (256, 2), (256, 4), (256, 6), (256, 8),
+                 (2, 2), (4, 2), (4, 4), (8, 4),
+                 (32, 2), (32, 4), (32, 6), (32, 8), (64, 6), (64, 8),
+                 (128, 6), (128, 8))
+
+
+class QuantPlan(NamedTuple):
+    route: str      # "short", "narrow", "row" or "wide"
+    lanes: int      # threads a block
+    units: int      # float4 units a lane holds (0: wide)
+    per_cta: int    # blocks a CTA takes at a time
+    grid: int       # CTAs
+    vector: bool    # float4 loads (else each value alone)
+
+
+def _fewest_units(lanes: int, block: int, units=ROW_UNITS) -> int:
+    return next(u for u in units if 4 * u * lanes >= block)
+
+
+def quantize_plan(rows: int, n: int, block: int, aligned: bool
+                  ) -> QuantPlan:
+    """The quantize kernel's geometry for ``rows`` rows of ``n`` values in
+    blocks of ``block``; ``aligned``: :func:`is_aligned`'s condition.
+
+    A unit is 4 values.  A call whose blocks all fit on the card at one
+    unit a lane (up to 256 lanes a block, CARD_THREADS threads in all)
+    takes the short route: that many lanes, so each thread's chain of
+    divisions is as short as it gets (blocks over 1024 values: 256 lanes
+    of the fewest units of ROW_UNITS).  Larger calls are paced by the
+    bytes.  Narrow blocks (<= NARROW_MAX) hold 2^k units, rounded up,
+    split as evenly as powers of two allow: 2^ceil(k/2) lanes of
+    2^floor(k/2) units (16 values: 2 lanes of 2 units; 64: 4 of 4).  Row
+    blocks (<= ROW_MAX) take one warp while 8 units a lane hold them,
+    else 64, 128 or 256 lanes, with the fewest units of ROW_UNITS that
+    hold the block (1024: 32 lanes of 8; 1600: 64 of 8; 5504: 256 of 6).
+    A CTA takes QUANT_THREADS / lanes blocks at a time over a grid-stride
+    loop, on at most the CTAs the SMs hold at once.  Longer blocks take a
+    CTA each (wide)."""
+    total = rows * -(-n // block)
+    if block > ROW_MAX:
+        return QuantPlan("wide", QUANT_THREADS, 0, 1, total, False)
+    k = (-(-block // 4) - 1).bit_length()
+    spread = min(QUANT_THREADS, 1 << k)
+    if total * spread <= CARD_THREADS:
+        route, lanes = "short", spread
+        units = _fewest_units(lanes, block, (1,) + ROW_UNITS)
+    elif block <= NARROW_MAX:
+        route, lanes, units = "narrow", 1 << (k + 1) // 2, 1 << k // 2
+    else:
+        route = "row"
+        lanes = next(g for g in (32, 64, 128, 256)
+                     if block <= 4 * ROW_UNITS[-1] * g)
+        units = _fewest_units(lanes, block)
+    per = QUANT_THREADS // lanes
+    return QuantPlan(route, lanes, units, per,
+                     min(-(-total // per), SMS * CTAS_A_SM),
+                     aligned and block % 4 == 0)
+
+
+def is_aligned(x: torch.Tensor, block: int) -> bool:
+    """Every block of a contiguous (R, n) f32 ``x`` starts on the 16-byte
+    grid: its base does, and so do the block and (over several rows) the
+    row strides."""
+    rows, n = x.shape
+    return (block % 4 == 0 and x.data_ptr() % 16 == 0
+            and (rows <= 1 or n % 4 == 0))
 
 
 def _lib():
@@ -28,8 +111,12 @@ def _lib():
         lib.quantize_f32_i8.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
             ctypes.c_int, ctypes.c_void_p]
-        lib.dequantize_i8_f32.argtypes = list(lib.quantize_f32_i8.argtypes)
+        lib.dequantize_i8_f32.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
         lib.quantize_f32_i8.restype = ctypes.c_int
         lib.dequantize_i8_f32.restype = ctypes.c_int
         _LIB = lib
@@ -63,15 +150,17 @@ def quantize(x: torch.Tensor, block: int
         return ref.quantize(x, block)
     rows, n = x.shape
     nb = -(-n // block)
-    if rows * nb > _MAX_CTAS:
+    if rows * nb > _MAX_BLOCKS:
         raise ValueError(f"quantize of {rows} rows x {nb} blocks exceeds "
-                         f"one grid ({_MAX_CTAS} CTAs)")
+                         f"the kernel's {_MAX_BLOCKS} blocks")
     q = torch.empty((rows, nb * block), dtype=torch.int8, device=x.device)
     scales = torch.empty((rows, nb), dtype=torch.float32, device=x.device)
     if rows == 0 or nb == 0:
         return q, scales
+    p = quantize_plan(rows, n, block, is_aligned(x, block))
     rc = _lib().quantize_f32_i8(
         x.data_ptr(), q.data_ptr(), scales.data_ptr(), rows, n, nb, block,
+        p.lanes, p.units, p.grid, int(p.vector),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "quantize", "quantize_f32_i8")
     kernels.launch_counts["quantize"] += 1

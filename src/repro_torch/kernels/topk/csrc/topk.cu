@@ -15,10 +15,14 @@
 // the K addressed values of x and write K values: 12*N*K bytes.  scatter
 // must read idx and vals and write the whole dense output: 8*N*K + 4*N*n.
 //
-// gather design: one thread per output element on a (K-chunk, row) grid;
-// neighbouring threads read neighbouring idx and write neighbouring out,
-// and, since the wire plane sends sorted indices, read nearby addresses of
-// x, so a warp's loads of x touch few 32-byte sectors.
+// gather design: one thread per output element; neighbouring threads
+// read neighbouring idx and write neighbouring out, and, since the wire
+// plane sends sorted indices, read nearby addresses of x, so a warp's loads
+// of x touch few 32-byte sectors.  A row of K <= 256 takes K rounded up to
+// a power of two lanes, and a CTA holds 256 / that many rows (wire_bench's
+// rows of two values: 128 rows a CTA, where a CTA a row ran two live
+// threads of 256); a longer row takes ceil(K / 256) CTAs.  A call is one
+// launch and nothing else: no memset of the error flag (below).
 //
 // scatter design: one launch over (column tile, row); the wrapper picks
 // the tile width (ops.scatter_tile: about one CTA an SM, 1024 to 16,384
@@ -59,10 +63,23 @@
 // threshold and the streaming stores were chosen by timing variants on an
 // H100 at the wire plane's shapes and at (64, 157,286) -> 2^20.
 //
-// Bad indices: both kernels check 0 <= idx < bound and set *err to 1
+// Bad indices: both kernels check 0 <= idx < bound and flag the call
 // instead of reading or writing out of bounds; the wrapper raises when it
-// is set (a scatter row with a bad index is marked, and its rewrite
-// leaves it all zero, never passed off as a result).
+// is flagged (a scatter row with a bad index is marked, and its rewrite
+// leaves it all zero, never passed off as a result).  The scatter sets its
+// scratch's first int to 1 (the scratch is zeroed with the call).  The
+// gather stores the call's stamp in a flag that nothing zeroes: ops.py
+// keeps one 64-bit flag a (device, stream, host thread), zero when made,
+// and gives each call a stamp from one counter of the process, so no two
+// calls share a stamp.  The wrapper reads the flag on its own stream right
+// after the launch and raises only if it holds this call's stamp.  A
+// stale stamp from an earlier bad call is another number, so it raises
+// nothing; a bad call right after another stores its own stamp, so it
+// raises.  A call on another stream (or from another thread) has its own
+// flag: it can neither overwrite this one, and so hide this call's error,
+// nor store this call's stamp, and so invent one.  Within one stream the
+// read follows the launch in stream order, before any later launch of
+// this thread.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,20 +97,27 @@ constexpr int kBatch = 8;            // range entries a thread has in flight
 constexpr int kMaxGridY = 65535;
 constexpr int kDefaultSmem = 48 * 1024;
 
+// Grid (K-chunks, row groups): lane t & (L - 1) of a CTA is column k of
+// the chunk, t >> shift its row (L = 2^shift lanes a row, 256 / L rows a
+// CTA; shift = 8 for a row longer than 256).
 __global__ void __launch_bounds__(kGatherThreads)
 gather_kernel(const float* __restrict__ x, const int* __restrict__ idx,
               float* __restrict__ out, int64_t rows, int64_t P, int64_t K,
-              int* __restrict__ err) {
+              int shift, unsigned long long stamp,
+              unsigned long long* __restrict__ flag) {
+  const int per = kGatherThreads >> shift;         // rows a CTA
   const int64_t k = static_cast<int64_t>(blockIdx.x) * kGatherThreads +
-                    threadIdx.x;
+                    (threadIdx.x & ((1u << shift) - 1u));
   if (k >= K) return;
-  for (int64_t r = blockIdx.y; r < rows; r += gridDim.y) {
+  for (int64_t r = static_cast<int64_t>(blockIdx.y) * per +
+                   (threadIdx.x >> shift);
+       r < rows; r += static_cast<int64_t>(gridDim.y) * per) {
     const int j = __ldg(idx + r * K + k);
     float v = 0.f;
     if (j >= 0 && j < P) {
       v = __ldg(x + r * P + j);
     } else {
-      atomicExch(err, 1);
+      *flag = stamp;                  // every bad thread stores the same
     }
     out[r * K + k] = v;
   }
@@ -369,21 +393,25 @@ scatter_kernel(const int* __restrict__ idx, const float* __restrict__ vals,
 
 }  // namespace
 
+// flag: the caller's (1,) 64-bit flag, where a bad index stores `stamp`.
 extern "C" int topk_gather_f32(const void* x, const void* idx, void* out,
                                long long rows, long long P, long long K,
-                               void* err, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t rc = cudaMemsetAsync(err, 0, sizeof(int), s);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
+                               unsigned long long stamp, void* flag,
+                               void* stream) {
   if (rows <= 0 || K <= 0) return 0;
-  const long long blocks = (K + kGatherThreads - 1) / kGatherThreads;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  int shift = 0;
+  while ((1LL << shift) < K && (1 << shift) < kGatherThreads) ++shift;
+  const long long chunks = (K + kGatherThreads - 1) / kGatherThreads;
+  if (chunks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const long long per = kGatherThreads >> shift;
+  const long long groups = (rows + per - 1) / per;
   const unsigned grid_y =
-      static_cast<unsigned>(rows < kMaxGridY ? rows : kMaxGridY);
-  gather_kernel<<<dim3(static_cast<unsigned>(blocks), grid_y),
-                  kGatherThreads, 0, s>>>(
+      static_cast<unsigned>(groups < kMaxGridY ? groups : kMaxGridY);
+  gather_kernel<<<dim3(static_cast<unsigned>(chunks), grid_y),
+                  kGatherThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const int*>(idx),
-      static_cast<float*>(out), rows, P, K, static_cast<int*>(err));
+      static_cast<float*>(out), rows, P, K, shift, stamp,
+      static_cast<unsigned long long*>(flag));
   return static_cast<int>(cudaGetLastError());
 }
 

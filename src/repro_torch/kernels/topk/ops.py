@@ -5,6 +5,8 @@ On CUDA tensors they launch ``csrc/topk.cu``; on CPU tensors they run the
 plain versions in :mod:`repro_torch.kernels.topk.ref`.  An index outside
 its row raises :class:`IndexError` on either device: the kernels flag it
 instead of touching memory out of bounds, and the wrapper reads the flag.
+The gather's flag is never zeroed: each call stores its own stamp there
+(:class:`StampedFlags`), so a call is one launch.
 
 Each wrapper call launches one kernel and counts it in
 :data:`repro_torch.kernels.launch_counts`.
@@ -13,6 +15,8 @@ Each wrapper call launches one kernel and counts it in
 from __future__ import annotations
 
 import ctypes
+import itertools
+import threading
 
 import torch
 
@@ -37,7 +41,7 @@ def _lib():
         lib.topk_gather_f32.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-            ctypes.c_void_p, ctypes.c_void_p]
+            ctypes.c_ulonglong, ctypes.c_void_p, ctypes.c_void_p]
         lib.topk_scatter_f32.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
@@ -71,15 +75,57 @@ def _raise_if_flagged(err: torch.Tensor, what: str, bound: int) -> None:
         raise IndexError(f"{what}: an index lies outside [0, {bound})")
 
 
+class StampedFlags:
+    """The gather's bad-index flags: one (1,) int64 tensor a key (the
+    wrapper's key is (device, stream, host thread)), zero when made and
+    never zeroed again, and the stamps of the calls, from one counter
+    (1, 2, ...), so no two calls share one.  A bad call's kernel stores
+    its stamp in its key's flag; :meth:`raised` is true only for the
+    stamp the flag holds."""
+
+    def __init__(self):
+        self._flags: dict[tuple, torch.Tensor] = {}
+        self._stamps = itertools.count(1)
+        self._lock = threading.Lock()
+
+    def flag(self, key: tuple, device) -> torch.Tensor:
+        with self._lock:
+            flag = self._flags.get(key)
+            if flag is None:
+                flag = self._flags[key] = torch.zeros(
+                    1, dtype=torch.int64, device=device)
+            return flag
+
+    def stamp(self) -> int:
+        with self._lock:
+            return next(self._stamps)
+
+    @staticmethod
+    def raised(flag: torch.Tensor, stamp: int) -> bool:
+        return int(flag.item()) == stamp
+
+
+GATHER_FLAGS = StampedFlags()
+
+
+def gather_flag(device) -> torch.Tensor:
+    """The gather's flag for the current stream of ``device`` and this
+    host thread."""
+    stream = torch.cuda.current_stream(device)
+    return GATHER_FLAGS.flag(
+        (stream.device_index, stream.cuda_stream, threading.get_ident()),
+        device)
+
+
 def _launch_gather(x: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
-                   err: torch.Tensor) -> None:
-    """Launch the gather kernel into ``out``; ``err`` ((1,) int32) is set
-    to 1 on a bad index.  No checks and no read of ``err``, so no host
-    sync: :func:`topk_gather` checks around it."""
+                   flag: torch.Tensor, stamp: int) -> None:
+    """Launch the gather kernel into ``out``; a bad index stores ``stamp``
+    in ``flag`` ((1,) int64).  No checks and no read of ``flag``, so no
+    host sync: :func:`topk_gather` checks around it."""
     rows, p = x.shape
     rc = _lib().topk_gather_f32(
         x.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, p,
-        idx.shape[1], err.data_ptr(),
+        idx.shape[1], stamp, flag.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "topk", "topk_gather_f32")
     kernels.launch_counts["topk_gather"] += 1
@@ -129,9 +175,10 @@ def topk_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty(idx.shape, dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
-    err = torch.empty(1, dtype=torch.int32, device=x.device)
-    _launch_gather(x, idx, out, err)
-    _raise_if_flagged(err, "topk gather", p)
+    flag, stamp = gather_flag(x.device), GATHER_FLAGS.stamp()
+    _launch_gather(x, idx, out, flag, stamp)
+    if GATHER_FLAGS.raised(flag, stamp):
+        raise IndexError(f"topk gather: an index lies outside [0, {p})")
     return out
 
 

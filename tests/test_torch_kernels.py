@@ -7,9 +7,12 @@ reference's host numpy path and its Pallas kernels (interpret mode).
   ``rtol=atol=1e-6`` of the Pallas kernel, which reduces over clients in
   a tree.  The CUDA kernel's dispatch plan covers every column once and
   fills the SMs.
-* quantize: bitwise equal to ``quantize_int8_batch`` at any block; against
-  the Pallas kernel (block 1024) and its jnp oracle (other blocks) scales
-  agree to 1 ULP and codes to one step.
+* quantize: bitwise equal to ``quantize_int8_batch`` at any block (also
+  at the CUDA kernel's edge shapes); against the Pallas kernel (block
+  1024) and its jnp oracle (other blocks) scales agree to 1 ULP and codes
+  to one step.  The kernel's plan (``ops.quantize_plan``) takes every
+  block once, with the fewest lanes and units of its route, and picks the
+  expected route at the paths' shapes.
 * dequantize: bitwise equal to both.
 * the ``"kernel"`` backends dispatch to the plain versions on CPU tensors
   (no library is built or loaded), and asking for ``cuda`` without a card
@@ -259,6 +262,204 @@ def test_dequantize_edges_on_the_card(rows, n, block, offset):
                                block).cpu()
     host = dequantize_int8_batch(q_np, s_np, n, block)
     np.testing.assert_array_equal(_bits(got.numpy()), _bits(host))
+
+
+# The quantize kernel's plan (ops.quantize_plan): every (row, block) is
+# taken by exactly one group of lanes over the grid-stride loop, every
+# value of a block by exactly one (lane, unit, element), and the route at
+# the paths' shapes.
+PLAN_SHAPES = [(204_800, 16, 16), (1_024_000, 64, 64), (5_120_000, 64, 64),
+               (204_800, 1600, 1600), (204_800, 5504, 5504),
+               (1, 25_450, 1024), (16, 25_450, 1024), (1, 140_570_352, 1024),
+               (1, 2, 256), (1, 2, 1024), (256, 256, 256), (256, 256, 1024),
+               (2, 3, 1), (5, 2999, 7), (5, 3001, 1000), (65_537, 9, 7),
+               (3, 20_005, 10_000)]
+
+
+def _blocks_taken(p, total: int) -> np.ndarray:
+    """How often the grid-stride loop of ``p`` takes each block: CTA c
+    takes blocks base .. base + per_cta - 1 for base = c * per_cta, then
+    every grid * per_cta further, while base < total (wide: block c)."""
+    taken = np.zeros(total, np.int64)
+    step = p.grid * p.per_cta
+    for c in range(p.grid):
+        first = np.arange(c * p.per_cta, total, step)
+        for lane_group in range(p.per_cta):
+            g = first + lane_group
+            np.add.at(taken, g[g < total], 1)
+    return taken
+
+
+@pytest.mark.parametrize("rows,n,block", PLAN_SHAPES)
+def test_quantize_plan_covers_each_block_once(rows, n, block):
+    p = quant_ops.quantize_plan(rows, n, block, True)
+    total = rows * -(-n // block)
+    assert p.grid <= max(total, quant_ops.SMS * quant_ops.CTAS_A_SM)
+    if p.route == "wide":
+        assert (p.per_cta, p.grid) == (1, total) and block > \
+            quant_ops.ROW_MAX
+        return
+    assert (p.lanes, p.units) in quant_ops.QUANT_KERNELS
+    assert p.lanes * p.per_cta == quant_ops.QUANT_THREADS
+    assert p.grid == min(-(-total // p.per_cta),
+                         quant_ops.SMS * quant_ops.CTAS_A_SM)
+    if total <= 1 << 22:
+        assert (_blocks_taken(p, total) == 1).all()
+    # value j of a block: element e of unit u of lane l, j = 4 (u G + l) + e
+    j = np.array([4 * (u * p.lanes + lane) + e for lane in range(p.lanes)
+                  for u in range(p.units) for e in range(4)])
+    assert sorted(j) == list(range(4 * p.lanes * p.units))
+    assert 4 * p.lanes * p.units >= block
+
+
+@pytest.mark.parametrize("block", list(range(1, 260)) + [
+    700, 768, 769, 1000, 1024, 1025, 1536, 1537, 1600, 2048, 2049, 4096,
+    4097, 5504, 8192, 8193])
+def test_quantize_plan_takes_the_fewest_lanes_and_units(block):
+    """A few rows (short): one unit a lane, as many lanes as the block's
+    units rounded up to a power of two, at most 256 (then the fewest
+    units).  Rows past the card's threads: narrow blocks' units rounded up
+    to a power of two, split as evenly as powers of two allow (lanes >=
+    units); row blocks one warp while 8 units hold the block, else the
+    fewest lanes, then the fewest units of ROW_UNITS."""
+    short = quant_ops.quantize_plan(7, 3 * block, block, True)
+    p = quant_ops.quantize_plan(10**6, 3 * block, block, True)
+    if block > quant_ops.ROW_MAX:
+        assert short.route == p.route == "wide"
+        return
+    assert short.route == "short" and 4 * short.lanes * short.units >= block
+    if short.lanes < quant_ops.QUANT_THREADS:
+        assert short.units == 1
+        assert short.lanes == 1 or 4 * short.lanes // 2 < block
+    else:
+        fewer = [u for u in (1,) + quant_ops.ROW_UNITS if u < short.units]
+        assert not fewer or 4 * 256 * fewer[-1] < block
+    assert 4 * p.lanes * p.units >= block
+    if block <= quant_ops.NARROW_MAX:
+        assert p.route == "narrow"
+        assert p.lanes in (p.units, 2 * p.units)
+        assert p.lanes * p.units == 1 or 2 * p.lanes * p.units < block
+    else:
+        assert p.route == "row" and p.lanes >= 32
+        assert p.lanes == 32 or 4 * 8 * p.lanes // 2 < block
+        smaller = [u for u in quant_ops.ROW_UNITS if u < p.units]
+        assert not smaller or 4 * p.lanes * smaller[-1] < block
+
+
+# (rows, n, block, aligned) -> (route, lanes, units, vector): phase 14's
+# four widths, the wire path (one client, and 16 rows whose starts are
+# off the 16-byte grid), LM-FL's delta, wire_bench's rows.
+PLAN_ROUTES = [
+    ((204_800, 16, 16, True), ("narrow", 2, 2, True)),
+    ((1_024_000, 64, 64, True), ("narrow", 4, 4, True)),
+    ((204_800, 1600, 1600, True), ("row", 64, 8, True)),
+    ((204_800, 5504, 5504, True), ("row", 256, 6, True)),
+    ((704_512, 1600, 1600, True), ("row", 64, 8, True)),
+    ((4, 1600, 1600, True), ("short", 256, 2, True)),
+    ((128, 1600, 1600, True), ("short", 256, 2, True)),
+    ((1, 25_450, 1024, True), ("short", 256, 1, True)),
+    ((16, 25_450, 1024, False), ("short", 256, 1, False)),
+    ((1, 140_570_352, 1024, True), ("row", 32, 8, True)),
+    ((64, 1 << 20, 1024, True), ("row", 32, 8, True)),
+    ((1, 2, 256, True), ("short", 64, 1, True)),
+    ((1, 2, 1024, True), ("short", 256, 1, True)),
+    ((256, 256, 256, True), ("short", 64, 1, True)),
+    ((256, 256, 1024, True), ("short", 256, 1, True)),
+    ((5, 2999, 7, True), ("short", 2, 1, False)),
+]
+
+
+@pytest.mark.parametrize("args,want", PLAN_ROUTES)
+def test_quantize_plan_routes_at_the_paths_shapes(args, want):
+    p = quant_ops.quantize_plan(*args)
+    assert (p.route, p.lanes, p.units, p.vector) == want
+
+
+def test_quantize_alignment_is_every_block_start_on_the_16_byte_grid():
+    buf = torch.zeros(4 * 25_452 + 1)
+    x = buf[:4 * 25_452].view(4, 25_452)
+    assert quant_ops.is_aligned(x, 1024)
+    assert not quant_ops.is_aligned(x, 1022)        # block % 4
+    assert not quant_ops.is_aligned(buf[1:].view(4, 25_452), 1024)
+    assert not quant_ops.is_aligned(buf[:4 * 25_450].view(4, 25_450), 1024)
+    assert quant_ops.is_aligned(buf[:25_450].view(1, 25_450), 1024)
+
+
+# Quantize's edge cases on the card (rows, n, block, offset), as
+# chip_smoke.py's QUANT_EDGES: n % 4 = 1, 2, 3 and 0 over several rows,
+# blocks 1, 7 and 1000, 65,537 rows, x one float off the 16-byte grid,
+# and block sizes reaching each kernel of ops.QUANT_KERNELS and the wide
+# route, over a few rows (short) and over more than the card's threads
+# hold (narrow, row), by scalar and vector loads.
+QUANT_EDGE_BLOCKS = (4, 7, 16, 32, 64, 128, 256, 512, 700, 1024, 1536,
+                     2048, 3000, 4096, 5504, 8192, 10_000)
+
+
+def _rows_past_the_card(block: int) -> int:
+    """Rows of 3 blocks that need more threads than the card holds at one
+    float4 unit a lane (up to 256 lanes a block): a call paced by its
+    bytes, which takes the narrow or row route, not the short one."""
+    spread = min(256, 1 << (-(-block // 4) - 1).bit_length())
+    return 132 * 8 * 256 // (3 * spread) + 1
+
+
+QUANT_EDGES = ([(3, 25_449, 1024, 0), (3, 25_450, 1024, 0),
+                (3, 25_451, 1024, 0), (3, 25_452, 1024, 0), (2, 3, 1, 0),
+                (5, 2999, 7, 0), (5, 3001, 1000, 0), (65_537, 9, 7, 0),
+                (65_537, 64, 64, 0), (3, 4096, 1024, 1), (5, 2999, 7, 1),
+                (4, 1600, 1600, 1)]
+               + [(rows, 2 * b + 5, b, 0) for b in QUANT_EDGE_BLOCKS
+                  for rows in (3, _rows_past_the_card(b))]
+               + [(rows, 3 * b - 4, b, 0) for b in QUANT_EDGE_BLOCKS
+                  for rows in (2, _rows_past_the_card(b))])
+
+
+def test_quantize_edges_reach_every_kernel_by_both_loads():
+    """The edge cases below reach every (lanes, units) kernel, the wide
+    route, and vector and scalar loads (with x as the tests lay it out)."""
+    reached = set()
+    for rows, n, block, offset in QUANT_EDGES:
+        aligned = (block % 4 == 0 and offset % 4 == 0
+                   and (rows == 1 or n % 4 == 0))
+        p = quant_ops.quantize_plan(rows, n, block, aligned)
+        reached.add((p.route, p.lanes, p.units, p.vector))
+    assert {(g, u) for r, g, u, _ in reached if r != "wide"} == set(
+        quant_ops.QUANT_KERNELS)
+    assert {r[0] for r in reached} == {"short", "narrow", "row", "wide"}
+    assert {r[3] for r in reached if r[0] != "wide"} == {True, False}
+
+
+@pytest.mark.parametrize("rows,n,block,offset", QUANT_EDGES)
+def test_quantize_plain_at_edge_shapes(rows, n, block, offset):
+    """The plain version at the CUDA kernel's edge shapes, bitwise against
+    numpy."""
+    mat = _mat(rows, n)
+    q, s = quant_ops.quantize(torch.from_numpy(mat), block)
+    q_np, s_np = quantize_int8_batch(mat, block)
+    np.testing.assert_array_equal(q.numpy(), q_np)
+    np.testing.assert_array_equal(_bits(s.numpy()), _bits(s_np))
+
+
+@pytest.mark.parametrize("rows,n,block,offset", QUANT_EDGES)
+def test_quantize_edges_on_the_card(rows, n, block, offset):
+    """The CUDA kernel at the edge shapes, x laid ``offset`` floats into
+    its buffer, bitwise against the plain version and numpy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs these checks "
+                    "on the card")
+    mat = _mat(rows, n)
+    dev = torch.device("cuda")
+    buf = torch.zeros(rows * n + offset, device=dev)
+    buf[offset:] = torch.from_numpy(mat.reshape(-1)).to(dev)
+    x = buf[offset:].view(rows, n)
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    q, s = quant_ops.quantize(x, block)
+    q_ref, s_ref = quant_ref.quantize(x, block)
+    assert torch.equal(q, q_ref)
+    assert torch.equal(s.view(torch.int32), s_ref.view(torch.int32))
+    q_np, s_np = quantize_int8_batch(mat, block)
+    np.testing.assert_array_equal(q.cpu().numpy(), q_np)
+    np.testing.assert_array_equal(_bits(s.cpu().numpy()), _bits(s_np))
 
 
 def test_quantize_rounds_half_to_even_and_pads_with_zeros():

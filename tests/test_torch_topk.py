@@ -8,7 +8,9 @@ exact: gather and scatter at three shapes, a scatter with duplicate
 indices (last wins, like the reference's sequential row loop and numpy
 fancy assignment), and the gather -> scatter round trip.  The wrappers
 refuse an index outside its row on the CPU as the kernels flag it on the
-card.  The scatter's tile plan (host-side) is checked here.  The CUDA
+card.  The scatter's tile plan (host-side) is checked here, and so is the
+gather's stamped flag (``ops.StampedFlags``: a bad call raises, a stale
+stamp does not, another stream's or thread's flag is its own).  The CUDA
 kernels themselves run only on a card (the ``on_the_card`` cases skip
 here; ``chip_smoke.py`` holds them against these plain versions).
 """
@@ -157,6 +159,70 @@ def test_cuda_kernels_match_plain_versions_bitwise():
         assert torch.equal(out, topk_ref.gather(x, idx))
         assert torch.equal(topk_ops.topk_scatter(idx, out, p),
                            topk_ref.scatter(idx, out, p))
+
+
+def test_gather_stamped_flags_raise_exactly_at_the_bad_calls():
+    """The gather's flag is never zeroed: each call gets a fresh stamp and
+    the kernel stores it on a bad index (stood in for here by a fill on
+    a CPU flag).  good, bad, good, bad, bad raise at the bad calls only;
+    a bad call on another key (stream or thread) neither raises here nor
+    hides this key's error."""
+    flags = topk_ops.StampedFlags()
+    mine, other = flags.flag(("dev", 1, 7), "cpu"), flags.flag(("dev", 2, 7),
+                                                              "cpu")
+    assert flags.flag(("dev", 1, 7), "cpu") is mine and other is not mine
+    assert mine.dtype == torch.int64 and int(mine.item()) == 0
+
+    def call(flag, bad):
+        stamp = flags.stamp()
+        if bad:
+            flag.fill_(stamp)                  # the kernel's store
+        return flags.raised(flag, stamp)
+    assert [call(mine, bad) for bad in (False, True, False, True, True)] \
+        == [False, True, False, True, True]
+    # a bad call on the other key between this key's launch and read
+    stamp = flags.stamp()
+    mine.fill_(stamp)
+    assert call(other, True)
+    assert flags.raised(mine, stamp)
+    assert not call(mine, False)
+
+
+def test_gather_stamps_are_unique_across_threads():
+    import threading
+    flags = topk_ops.StampedFlags()
+    got: list[int] = []
+
+    def take():
+        got.extend(flags.stamp() for _ in range(500))
+    threads = [threading.Thread(target=take) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert sorted(got) == list(range(1, 2001))
+
+
+def test_gather_bad_index_sequence_on_the_card():
+    """On the card: good, bad, good, bad, bad on one stream raise at the
+    bad calls only, each good call equal to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs these checks "
+                    "on the card")
+    rng = np.random.default_rng(24)
+    dev = torch.device("cuda")
+    x = _t(rng.standard_normal((4, 25_450)).astype(np.float32)).to(dev)
+    good = _unique_idx(rng, 4, 25_450, 1018)
+    bad = good.copy()
+    bad[2, 500] = 25_450
+    idx = {False: _t(good).to(dev), True: _t(bad).to(dev)}
+    for is_bad in (False, True, False, True, True):
+        if is_bad:
+            with pytest.raises(IndexError, match=r"\[0, 25450\)"):
+                topk_ops.topk_gather(x, idx[True])
+        else:
+            assert torch.equal(topk_ops.topk_gather(x, idx[False]),
+                               topk_ref.gather(x, idx[False]))
 
 
 # The scatter's tile plan: (rows, n) -> columns a CTA, at the wire plane's
