@@ -200,9 +200,22 @@ Phases, each printed on its own lines; any failure exits non-zero:
    repro_torch.launch.dryrun`` on one cell and ``python -m
    repro_torch.roofline`` must exit 0 (their files go to
    ``build/port_dryrun/``).
-15. A JSON line with every kernel's numbers, one with phases 8, 9, 11-14's,
-   the card line again, and the result line ``{"ok": true,
-   "device": {...}}`` last.
+15. The reference's benchmark harness on the port
+   (``repro_torch.bench_run``): (a) all 14 suites in this process, each
+   suite's wall, launches and calls by shape; every row present and in
+   order, no suite error (a kernel off its contract is one), every
+   deterministic field on its pin (``bench_run.PINS``), each kernel row
+   on the ``cuda`` route, each of the eight kernels launched, and every
+   call of the five FL kernels bitwise against its plain version (fedavg
+   also against the numpy fold); (b) ``python -m repro_torch.bench_run
+   --only kernels`` in its own process must exit 0 and hold the same;
+   (c) the aggregation and kernels suites again, in this process and a
+   fresh one, each kernels row taken apart: its calls' host, sync and
+   event-span times and new allocator segments, and the garbage
+   collector's time in its reps.
+16. A JSON line with every kernel's numbers (``launches_phase15`` by
+   suite among them), one with phases 8, 9, 11-15's, the card line again,
+   and the result line ``{"ok": true, "device": {...}}`` last.
 
 Phase 2 also holds the flash attention and mLSTM kernels against their
 plain versions at the serving shapes and at a 1500-token prompt, in bf16
@@ -228,7 +241,8 @@ Launch counts are zeroed just before each path (phases 4, 5, the
 checksum pass of 5, the serving run of 6, of 7 and of each configuration
 of 10, the training steps of 8, the rounds of 9 and of each arm of 11,
 each of phase 12's runs at users' scale, each part of phase 13 and each
-mode of phase 14(a)) and read just after it, so the comparison launches
+mode of phase 14(a), the harness run of phase 15(a)) and read just after
+it, so the comparison launches
 of phase 2, of the ``encode_batch`` check and of the serving and
 aggregation holds do not count.
 
@@ -3135,14 +3149,15 @@ def _shape_key(name: str, args) -> str:
     return "x".join(str(d) for d in args[0].shape)
 
 
-def _calls_by_shape():
-    """Wrap the five FL kernels' wrappers so each call is counted by its
-    shape; returns ``(counters, undo)``."""
+def _calls_by_shape(wrappers=None):
+    """Wrap the kernels' wrappers (default: the five FL kernels') so each
+    call is counted by its shape; returns ``(counters, undo)``."""
     import collections
     import importlib
-    counters = {name: collections.Counter() for _, name in FL_WRAPPERS}
+    wrappers = FL_WRAPPERS if wrappers is None else wrappers
+    counters = {name: collections.Counter() for _, name in wrappers}
     saved = []
-    for family, name in FL_WRAPPERS:
+    for family, name in wrappers:
         mod = importlib.import_module(f"repro_torch.kernels.{family}.ops")
         fn = getattr(mod, name)
 
@@ -4179,6 +4194,246 @@ def run_mesh_tooling(lm: dict, train_rec: dict, parent=None) -> dict:
             "phase_s": time.perf_counter() - t_phase}
 
 
+#: Every kernel's wrapper, by (family, wrapper name), for phase 15's calls
+#: by shape.
+ALL_WRAPPERS = FL_WRAPPERS + (("checksum", "chunksum32"),
+                              ("flash_attention", "flash_attention"),
+                              ("mlstm", "mlstm"))
+
+
+def kernel_row_split() -> dict:
+    """The aggregation and kernels suites through ``bench_run.main`` on
+    the card, in the harness's order, each kernels-suite row taken apart:
+    each call of its wrapper or plain version (the warm call first) as
+    host time to the call's return, the wait in a synchronize just after,
+    the span between CUDA events around it (on an idle card the span is
+    the host's enqueue time, not the kernel's) and the segments the
+    caching allocator took from ``cudaMalloc`` in it; and the row's timed
+    reps as their wall (the probe's own reads included), the calls' share
+    of it and the time the garbage collector ran inside it
+    (``gc.callbacks``, with the generations).  Returns, by row, its wall
+    a rep and that record."""
+    import contextlib
+    import gc
+    import io
+
+    import torch
+    from repro_torch import bench_run, kernels_bench
+    collections_: list[tuple[float, float, int]] = []
+    started = [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            started[0] = time.perf_counter()
+        else:
+            collections_.append((started[0], time.perf_counter(),
+                                 info["generation"]))
+
+    calls: dict[str, list] = {}
+
+    def segments() -> int:
+        return torch.cuda.memory_stats().get("segment.all.allocated", 0)
+
+    def split(row, fn):
+        def timed(*args):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            seg0 = segments()
+            t0 = time.perf_counter()
+            ev[0].record()
+            out = fn(*args)
+            ev[1].record()
+            t1 = time.perf_counter()
+            ev[1].synchronize()
+            calls[row].append((t0, t1, time.perf_counter(),
+                               ev[0].elapsed_time(ev[1]) * 1e3,
+                               segments() - seg0))
+            return out
+        timed.row = row
+        calls[row] = []
+        return timed
+
+    windows: dict[str, tuple[float, float]] = {}
+    time_row = kernels_bench._time
+
+    def timed_row(fn, args, reps, dev):
+        out = time_row(fn, args, reps, dev)
+        windows[fn.row] = (calls[fn.row][0][2], time.perf_counter())
+        return out
+
+    saved = dict(kernels_bench.PAIRS)
+    suites = dict(bench_run.SUITES)
+    gc.callbacks.append(on_gc)
+    try:
+        for name, (wrapper, plain, reps) in saved.items():
+            kernels_bench.PAIRS[name] = (split(f"kernels/{name}_kernel",
+                                               wrapper),
+                                         split(f"kernels/{name}_ref", plain),
+                                         reps)
+        kernels_bench._time = timed_row
+        bench_run.SUITES.clear()
+        bench_run.SUITES.update((k, suites[k])
+                                for k in ("aggregation", "kernels"))
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc = bench_run.main(["--device", "cuda"])
+    finally:
+        gc.callbacks.remove(on_gc)
+        kernels_bench.PAIRS.update(saved)
+        kernels_bench._time = time_row
+        bench_run.SUITES.clear()
+        bench_run.SUITES.update(suites)
+    if rc != 0:
+        raise AssertionError(f"bench_run aggregation, kernels returned {rc}")
+    result = {}
+    for row, us, _ in bench_run.parse(out.getvalue()):
+        if row not in windows:
+            continue
+        lo, hi = windows[row]
+        in_gc = [(min(e, hi) - max(s, lo), g) for s, e, g in collections_
+                 if e > lo and s < hi]
+        result[row] = {
+            "us": us, "reps_us": round((hi - lo) * 1e6, 1),
+            "calls_us": round(sum(c[2] - c[0] for c in calls[row][1:])
+                              * 1e6, 1),
+            "gc_us": round(sum(d for d, _ in in_gc) * 1e6, 1),
+            "gc_generations": [g for _, g in in_gc],
+            "calls": [[round((c[1] - c[0]) * 1e6, 1),
+                       round((c[2] - c[1]) * 1e6, 1), round(c[3], 1), c[4]]
+                      for c in calls[row]]}
+    return result
+
+
+def _say_row_split(tag: str, split: dict) -> None:
+    for row, r in split.items():
+        say(f"    {tag} {row} {r['us']:.1f} us: reps {r['reps_us']} us, "
+            f"calls {r['calls_us']}, gc {r['gc_us']} (generations "
+            f"{r['gc_generations']}); each call host, sync, event span us, "
+            f"new segments {json.dumps(r['calls'])}")
+
+
+def run_bench_harness() -> dict:
+    """Phase 15: the reference's benchmark harness on the port, (a)
+    ``bench_run.main(["--device", "cuda"])`` in this process (its output
+    captured; the launch counts zeroed just before and read just after,
+    each suite's launches, calls by shape and wall recorded around it;
+    every call of the five FL kernels kept and held bitwise after the
+    run: fedavg against its plain version and the numpy fold, the wire
+    kernels against their plain versions), then (b) ``python -m
+    repro_torch.bench_run --only kernels`` in a process of its own, which
+    must exit 0, and (c) the aggregation and kernels suites again, each
+    kernels row taken apart (:func:`kernel_row_split`), in this process
+    and in a fresh one.  Fails
+    on a suite error, a missing or extra row, a deterministic field off
+    its pin, a kernel row not on the ``cuda`` route, a kernel call off its
+    plain version, and on any of the eight kernels not launched by (a)."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch import bench_run, kernels
+
+    def off_route(rows) -> list[str]:
+        return [f"{row}: {derived}" for row, _, derived in rows
+                if row.startswith("kernels/") and row.endswith("_kernel")
+                and not derived.endswith(";route=cuda")]
+
+    suites: dict[str, dict] = {}
+
+    def counted(name, bench):
+        def run():
+            torch.cuda.synchronize()
+            launches0 = dict(kernels.launch_counts)
+            shapes0 = {k: c.copy() for k, c in counters.items()}
+            t0 = time.perf_counter()
+            try:
+                return list(bench())
+            finally:
+                torch.cuda.synchronize()
+                suites[name] = {
+                    "wall_s": time.perf_counter() - t0,
+                    "launches": {k: v - launches0[k] for k, v
+                                 in kernels.launch_counts.items()
+                                 if v > launches0[k]},
+                    "calls_by_shape": {
+                        k: dict((c - shapes0[k]).most_common())
+                        for k, c in counters.items() if c - shapes0[k]}}
+        return run
+
+    saved = dict(bench_run.SUITES)
+    kept, undo_capture = _capture_calls([n for _, n in FL_WRAPPERS])
+    counters, undo = _calls_by_shape(ALL_WRAPPERS)
+    t0 = time.perf_counter()
+    try:
+        for name, bench in saved.items():
+            bench_run.SUITES[name] = counted(name, bench)
+        kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc = bench_run.main(["--device", "cuda"])
+        launches = {k: v for k, v in kernels.launch_counts.items() if v}
+    finally:
+        bench_run.SUITES.update(saved)
+        undo()
+        undo_capture()
+    wall = time.perf_counter() - t0
+    text = out.getvalue()
+    for line in text.splitlines():
+        say(f"    {line}")
+    for name, rec in suites.items():
+        say(f"    (a) {name}: {rec['wall_s']:.3f} s; launches "
+            f"{json.dumps(rec['launches'])}; calls by shape "
+            f"{json.dumps(rec['calls_by_shape'])}")
+    rows = bench_run.parse(text)
+    fails = bench_run.failures(rows) + off_route(rows)
+    if rc != 0:
+        fails.append(f"bench_run.main returned {rc}")
+    never = [name for name in kernels.launch_counts if not launches.get(name)]
+    if never:
+        fails.append(f"kernels never launched by the harness: {never}")
+    t_held = time.perf_counter()
+    held = {}
+    try:
+        if kept["fedavg"]:
+            held["fedavg"] = _hold_fedavg_calls("phase 15 (a)",
+                                                kept["fedavg"])
+        held.update(_hold_wire_calls("phase 15 (a)", kept))
+    except AssertionError as e:
+        fails.append(str(e))
+    del kept
+    held_s = time.perf_counter() - t_held
+    _require("phase 15 (a)", fails)
+    say(f"  (a) {wall:.3f} s; {len(rows)} rows, every pin holds, every "
+        f"kernel row on the cuda route; launches {json.dumps(launches)}")
+    say(f"  (a) every FL kernel call bitwise against its plain version "
+        f"(fedavg also the numpy fold) in {held_s:.3f} s: fedavg by shape "
+        f"{json.dumps(held.pop('fedavg', {}))}, wire calls "
+        f"{json.dumps(held)}")
+
+    t1 = time.perf_counter()
+    lines = _run_module("(b) bench_run --only kernels",
+                        ["repro_torch.bench_run", "--only", "kernels"])
+    sub = bench_run.parse("\n".join(lines))
+    _require("phase 15 (b)", bench_run.failures(sub, suites=["kernels"])
+             + off_route(sub))
+    cli_s = time.perf_counter() - t1
+
+    say("  (c) the aggregation and kernels suites again, each kernels row "
+        "taken apart: its reps' wall, the calls' share, the collector's")
+    split = {"in_process": kernel_row_split()}
+    code = ("import json, chip_smoke; "
+            "print(json.dumps(chip_smoke.kernel_row_split()))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=HERE,
+                          env=_module_env(), capture_output=True, text=True,
+                          timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 15 (c): the fresh process exited "
+                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    split["fresh_process"] = json.loads(proc.stdout.splitlines()[-1])
+    for tag, rec in split.items():
+        _say_row_split(tag, rec)
+    return {"wall_s": wall, "launches": launches, "suites": suites,
+            "rows": len(rows), "held_s": held_s, "kernels_cli_s": cli_s,
+            "row_split": split}
+
+
 def _ptxas_lines(log: str) -> list[tuple[str, str]]:
     """(kernel, line) for each register, spill and wgmma line of an
     ``nvcc -Xptxas=-v`` log; the kernel as ``name<template args>``."""
@@ -4416,6 +4671,14 @@ def main(argv: list[str] | None = None) -> int:
     mesh = run_mesh_tooling(lm, train_rec, parent)
     say(f"  phase 14: {mesh['phase_s']:.3f} s")
 
+    say("[15] the reference's benchmark harness on the port: "
+        "repro_torch.bench_run, all 14 suites in this process, then "
+        "--only kernels in its own")
+    t0 = time.perf_counter()
+    harness = run_bench_harness()
+    harness["phase_s"] = time.perf_counter() - t0
+    say(f"  phase 15: {harness['phase_s']:.3f} s")
+
     # Each kernel's launches on its own path: slice 1's kernels on phase
     # 4's path (their count on the fleet path beside it), the top-k
     # kernels on the fleet path, checksum on the pass over its bodies,
@@ -4489,9 +4752,14 @@ def main(argv: list[str] | None = None) -> int:
                 mode: rec["calls_by_shape"][name]
                 for mode, rec in mesh["pods"]["modes"].items()
                 if name in rec["calls_by_shape"]})
+    for rec in out:
+        rec["launches_phase15"] = {
+            suite: r["launches"].get(rec["name"], 0)
+            for suite, r in harness["suites"].items()}
     say(json.dumps({"lm_training": train_rec, "lm_fl": lmfl,
                     "fleet_layer": fleet_layer, "flow_fleet": flow_fleet,
-                    "paper_and_gates": gates, "mesh_tooling": mesh}))
+                    "paper_and_gates": gates, "mesh_tooling": mesh,
+                    "bench_harness": harness}))
     say(f"  total {time.perf_counter() - t_start:.3f} s")
     say(json.dumps({"kernels": out}))
     say(card_line())

@@ -132,6 +132,25 @@ def compare(**args) -> dict:
     return {"meta": a, "arms": arms, "adaptive_beats_every_static": beats_all}
 
 
+def bench():
+    """``(row name, wall us, derived fields)``, as the reference's
+    ``bench()``: one small comparison cell."""
+    report = compare(clients=24, seed=0, target_frac=0.02, params=1024,
+                     max_rounds=12, deadline_s=20.0, engine="batched")
+    rows = []
+    for name, cell in report["arms"].items():
+        rows.append((f"adaptive/{name.replace('/', '_')}_c24",
+                     cell["wall_s"] * 1e6,
+                     f"sim_s_to_target="
+                     f"{(cell['sim_ns_to_target'] or 0) / 1e9:.2f}"
+                     f";rounds={cell['rounds_to_target']}"
+                     f";reneg={cell['renegotiations']}"
+                     f";final_loss={cell['final_loss']:.4f}"))
+    rows.append(("adaptive/beats_every_static", 0.0,
+                 str(report["adaptive_beats_every_static"])))
+    return rows
+
+
 def digests_frozen_under_static() -> list[str]:
     """The pinned orchestrator replays with ``control="static"`` set, under
     both packet engines; returns the mismatches (empty: the control plane

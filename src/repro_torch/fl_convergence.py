@@ -91,6 +91,14 @@ def measure(*, global_params: Any = None,
     return arms
 
 
+def bench():
+    """``(row name, wall us, derived fields)``, as the reference's
+    ``bench()``: the four arms' accuracy after six rounds."""
+    return [(f"fl_convergence/{name}", arm["wall_us"],
+             f"acc6rounds={arm['accuracy']:.3f}")
+            for name, arm in measure().items()]
+
+
 def digest(rounds: list[dict]) -> str:
     return hashlib.sha256(json.dumps(rounds, sort_keys=True).encode()
                           ).hexdigest()

@@ -338,6 +338,60 @@ def rounds_to_accuracy(curve: list[dict], target: float) -> Optional[int]:
     return None
 
 
+# --------------------------------------------------------------------------
+# The harness's suites (repro_torch.bench_run): each the reference
+# benchmark's bench(), row names and derived fields as it prints them.
+# --------------------------------------------------------------------------
+def bench_topology(rounds: int = 2):
+    """``benchmarks/topology_bench.py``'s ``bench()``: one small cell per
+    topology."""
+    rows = []
+    for topology, kw in (("star", {}), ("hier", {"cells": 4}),
+                         ("gossip", {"neighbors": 3})):
+        t0 = time.perf_counter()
+        cell = run_topology(topology, n_clients=16, rounds=rounds, seed=0,
+                            n_params=1024, transport="mudp", **kw)
+        wall_us = (time.perf_counter() - t0) * 1e6
+        root = (cell["hop_bytes"].get("edge->root")
+                or cell["hop_bytes"].get("client->server")
+                or cell["hop_bytes"].get("peer->peer"))
+        rows.append((f"topology/{topology}_c16", wall_us,
+                     f"loss={cell['final_loss']:.4f}"
+                     f";root_bytes={root}"
+                     f";server_nodes={cell['server_nodes']}"))
+    return rows
+
+
+def bench_async_vs_sync():
+    """``benchmarks/async_vs_sync.py``'s ``bench()``: one small
+    comparison cell."""
+    report, _ = async_gate(clients=16, seed=0, target_frac=0.1, params=1024,
+                           max_rounds=8, transport="mudp", buffer_k=4,
+                           deadline_s=8.0, engine="batched")
+    rows = []
+    for mode in ("sync", "async"):
+        cell = report[mode]
+        rows.append((f"async_vs_sync/{mode}_c16",
+                     cell["wall_s"] * 1e6,
+                     f"sim_s_to_target="
+                     f"{(cell['sim_ns_to_target'] or 0) / 1e9:.2f}"
+                     f";rounds={cell['rounds_to_target']}"
+                     f";final_loss={cell['final_loss']:.4f}"))
+    ratio = report["time_ratio_async_over_sync"]
+    rows.append(("async_vs_sync/ratio", 0.0,
+                 f"async/sync={ratio:.3f}" if ratio else "no_crossing"))
+    return rows
+
+
+def bench_vmap_train():
+    """``benchmarks/vmap_train.py``'s ``bench()``: the small end of the
+    compute matrix."""
+    for row in compute_matrix([16, 64], budget_s=0.3):
+        yield (f"vmap_train/{row['backend']}_{row['clients']}c",
+               row["ms_per_call"] * 1e3,
+               f"speedup={row['speedup_vs_python']:.2f}x")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="topology,async,vmap",

@@ -153,6 +153,24 @@ def run_fleet(transport: str, *, rounds: int, **cell) -> dict:
     }
 
 
+def bench(rounds: int = 1):
+    """``(row name, wall us, derived fields)``, as the reference's
+    ``bench()``: a small fleet across all transports."""
+    rows = []
+    for tr in available_transports():
+        t0 = time.perf_counter()
+        cell = run_fleet(tr, rounds=rounds, n_clients=16, seed=0,
+                         participation=0.75, deadline_ns=20 * NS_PER_SEC,
+                         n_params=1024)
+        wall_us = (time.perf_counter() - t0) * 1e6
+        rows.append((f"fleet_scale/{tr}_c16", wall_us,
+                     f"sim_s={cell['sim_time_ns'] / 1e9:.2f}"
+                     f";bytes={cell['bytes_on_wire']}"
+                     f";retx={cell['retransmissions']}"
+                     f";loss={cell['final_loss']:.4f}"))
+    return rows
+
+
 def _cell_kwargs(args) -> dict:
     return dict(rounds=args.rounds, seed=args.seed,
                 participation=args.participation,

@@ -144,6 +144,22 @@ def run_cell(workload: str, transport: str, *, n_clients: int, payload: int,
     return cell
 
 
+def bench():
+    """``(row name, wall us, derived fields)``, as the reference's
+    ``bench()``: a small burst, both engines."""
+    rows = []
+    for tr in ("mudp", "udp"):
+        cell = run_cell("fleet_burst", tr, n_clients=16, payload=128 * 1024,
+                        n_params=1024, seed=0, repeats=1)
+        rows.append((
+            f"simcore/{tr}_burst_c16",
+            cell["batched"]["wall_s"] * 1e6,
+            f"speedup={cell['speedup_events_per_sec']:.2f}x"
+            f";eps={cell['batched']['events_per_sec']:.0f}"
+            f";identical={cell['digests_match']}"))
+    return rows
+
+
 #: The reference's digests at its CI arguments, by (workload, transport).
 PINNED_META = {"clients": 64, "payload_kib": 256, "params": 32768, "seed": 0}
 PINS = {

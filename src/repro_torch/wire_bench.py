@@ -272,6 +272,36 @@ def run(n_params: int, repeats: int) -> tuple[dict, list[str]]:
     return report, failures
 
 
+def bench():
+    """``(row name, wall us, derived fields)``, as the reference's
+    ``bench()`` (1,000,000 parameters, 3 repeats).  The batch rows are
+    the ``"kernel"`` backend's, the one the main path runs;
+    ``wire/determinism`` reads ``ok`` exactly when :func:`run` finds no
+    failure under either backend."""
+    report, failures = run(n_params=1_000_000, repeats=3)
+    rows = []
+    for p in report["pipelines"]:
+        rows.append((
+            f"wire/{p['spec']}",
+            p["encode_us"] + p["decode_us"],
+            f"bytes_per_param={p['bytes_per_param']:.3f}"
+            f";enc_mb_s={p['encode_mb_s']:.0f}"
+            f";dec_mb_s={p['decode_mb_s']:.0f}",
+        ))
+    for entry in report["batch_sweep"]["kernel"]:
+        gate_pt = entry["points"][-1]
+        rows.append((
+            f"wire_batch/{entry['spec']}@{gate_pt['n_clients']}",
+            gate_pt["batch_us"],
+            f"speedup={gate_pt['speedup']:.2f}x"
+            f";batch_mb_s={gate_pt['batch_mb_s']:.0f}"
+            f";bytes_identical={gate_pt['bytes_identical']}",
+        ))
+    rows.append(("wire/determinism", 0.0,
+                 "ok" if not failures else ";".join(failures)))
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--params", type=int, default=1_000_000)

@@ -214,8 +214,8 @@ def test_kernel_failure_stops_the_round(monkeypatch):
 # --------------------------------------------------------------------------
 # Import guard
 # --------------------------------------------------------------------------
-_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)",
-                        re.MULTILINE)
+_FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|repro|benchmarks)(\.|\s|$)", re.MULTILINE)
 
 
 def test_port_never_imports_jax_or_the_reference():
