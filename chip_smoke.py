@@ -59,8 +59,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
    K/V within the stated relative L2 errors; (b) a prefill of the first
    P-1 tokens plus one decode step gives the full prefill's logits within
    the same error; (c) top-1 tokens agree wherever the top-2 margin
-   exceeds the error.  Prints prefill and decode wall time, launches and
-   peak memory (and the peak just after the prefill).
+   exceeds the error; (a') the reference's own prefill route
+   (``attn_impl="chunked"``: the einsum attention 512 queries at a time)
+   against the same plain prefill, in (a)'s band.  Prints prefill and
+   decode wall time, launches and peak memory (and the peak just after
+   the prefill).
 7. xlstm-350m serving at full width (24 layers, d_model 1024, mLSTM head
    width 512): B=4 x 2048 tokens (the chunkwise mLSTM kernel, 21
    launches), 16 greedy steps from the recurrent state, holds (a)-(c) with
@@ -196,9 +199,18 @@ Phases, each printed on its own lines; any failure exits non-zero:
    8's train step: estimated and model FLOPs, the useful ratio, the
    estimated and the measured peak (the gemma3-12b prefill's within
    DRYRUN_PEAK_TOL of the peak just after it, the rest printed), and
-   the phase's model-FLOP rate against the bf16 peak; (c) ``python -m
-   repro_torch.launch.dryrun`` on one cell and ``python -m
-   repro_torch.roofline`` must exit 0 (their files go to
+   the phase's model-FLOP rate against the bf16 peak; then the
+   reference's prefill_32k sequence on its own route: gemma3-12b at full
+   width cut to 6 layers (its 5:1 local:global pattern once), one
+   sequence of 32,768 tokens through ``make_prefill_step(cfg,
+   attn_impl="chunked")`` and through the flash attention kernel (6
+   launches), the chunked route's last-position logits and every layer's
+   K/V held against the kernel route's in phase 6's band (a), its wall
+   and its peak just after the prefill, which the dry-run's chunked
+   estimate of the same cell must meet within DRYRUN_PEAK_TOL, with the
+   full-score (``einsum``) estimate and its ``fits`` printed beside it;
+   (c) ``python -m repro_torch.launch.dryrun`` on one cell and ``python
+   -m repro_torch.roofline`` must exit 0 (their files go to
    ``build/port_dryrun/``).
 15. The reference's benchmark harness on the port
    (``repro_torch.bench_run``): (a) all 14 suites in this process, each
@@ -2236,7 +2248,9 @@ def _cast_tree(tree: dict, dtype) -> dict:
 def _lm_holds(cfg, params, prompt, logits, prefill_cache) -> dict:
     """Holds (a)-(c) of one prefill (``logits``, ``prefill_cache``): (a)
     the same prefill with the kernel's plain version, (b) a prefill of the
-    first P-1 tokens plus one decode step, (c) top-1 agreement of both."""
+    first P-1 tokens plus one decode step, (c) top-1 agreement of both;
+    for a transformer also (a') the chunked route against the plain
+    one."""
     import torch
     from repro_torch.models import model as M
     from repro_torch.models import transformer as T
@@ -2245,6 +2259,13 @@ def _lm_holds(cfg, params, prompt, logits, prefill_cache) -> dict:
         lg_plain, cache_plain = M.make_prefill_step(cfg, attn_impl="plain")(
             params, {"tokens": prompt})
         states = _state_errors(prefill_cache, cache_plain)
+        chunked = None
+        if cfg.family in M.TRANSFORMER_FAMILIES:
+            lg_c, cache_c = M.make_prefill_step(cfg, attn_impl="chunked")(
+                params, {"tokens": prompt})
+            chunked = {"rel_l2": _rel_l2(lg_c, lg_plain),
+                       "states": _state_errors(cache_c, cache_plain)}
+            del lg_c, cache_c
         del cache_plain
         _, cache_b = M.make_prefill_step(cfg)(params,
                                               {"tokens": prompt[:, :-1]})
@@ -2257,7 +2278,7 @@ def _lm_holds(cfg, params, prompt, logits, prefill_cache) -> dict:
     return {"rel_l2_a": _rel_l2(logits, lg_plain), "states_a": states,
             "rel_l2_b": _rel_l2(lg_b, logits), "top1_a": top_a,
             "rows_a": rows_a, "top1_b": top_b, "rows_b": rows_b,
-            "plain_logits": lg_plain}
+            "chunked": chunked, "plain_logits": lg_plain}
 
 
 def _say_holds(tag: str, h: dict, logit_hold: float, state_hold) -> list:
@@ -2273,6 +2294,16 @@ def _say_holds(tag: str, h: dict, logit_hold: float, state_hold) -> list:
         f"rows, (b) {h['top1_b']} on {h['rows_b']}/{n} rows whose top-2 "
         f"margin exceeds the error")
     fails = []
+    if h.get("chunked"):
+        c = h["chunked"]
+        worst = {k: float(f"{v:.3e}") for k, v in c["states"].items()}
+        say(f"  {tag} (a') chunked vs plain prefill: logits rel L2 "
+            f"{c['rel_l2']:.3e} (hold {logit_hold:.3e}); worst state rel "
+            f"L2 {json.dumps(worst)} (hold {state_hold:.3e})")
+        if c["rel_l2"] > logit_hold:
+            fails.append(f"{tag} (a') logits rel L2 {c['rel_l2']}")
+        fails += [f"{tag} (a') {k} rel L2 {v}"
+                  for k, v in c["states"].items() if v > state_hold]
     if h["rel_l2_a"] > logit_hold:
         fails.append(f"{tag} (a) logits rel L2 {h['rel_l2_a']}")
     fails += [f"{tag} (a) {k} rel L2 {v}" for k, v in h["states_a"].items()
@@ -3884,8 +3915,15 @@ DRYRUN_CELLS = (
     ("gemma3-12b decode B = 2 over 2048 + 16", "gemma3-12b",
      ("decode_2x2066", LM_PATHS["gemma3-12b"]["prompt"] + GEN_STEPS + 2,
       2, "decode", LM_PATHS["gemma3-12b"]["prompt"] + GEN_STEPS + 2)))
-#: the gemma3-12b prefill estimate's peak against the measured one
+#: the gemma3-12b prefill estimates' peaks against the measured ones
 DRYRUN_PEAK_TOL = 0.15
+# (b) also: the reference's prefill_32k sequence length on its own route
+# (``attn_impl="chunked"``) against the flash attention kernel's:
+# gemma3-12b at full width cut to CHUNKED_LAYERS layers (its 5:1
+# local:global pattern once), one sequence of CHUNKED_SEQ tokens.  Cut
+# from prefill_32k's batch 32 and 48 layers, so that the chunked route's
+# working set is a large share of the peak the estimate is held to.
+CHUNKED_ARCH, CHUNKED_LAYERS, CHUNKED_SEQ = "gemma3-12b", 6, 32768
 DRYRUN_OUT = os.path.join("build", "port_dryrun")
 
 
@@ -4173,6 +4211,123 @@ def run_dryrun_cells(lm: dict, train_rec: dict) -> list[dict]:
     return out
 
 
+def run_chunked_prefill() -> dict:
+    """(b) The chunked prefill at prefill_32k's length: seeded bf16
+    parameters, one prefill through ``make_prefill_step(cfg,
+    attn_impl="chunked")`` (launch counts zeroed just before and read
+    just after: no kernel), then the same tokens through the flash
+    attention kernel (one launch a layer).  Holds the chunked route's
+    last-position logits and each layer's K/V against the kernel route's
+    in phase 6's band (a), and the dry-run's chunked estimate of the cell
+    within DRYRUN_PEAK_TOL of the step's measured peak: the most bytes
+    allocated during the prefill, less those held before it beyond the
+    step's own arguments (earlier phases' leftovers)."""
+    import dataclasses
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import lowering
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config(CHUNKED_ARCH),
+                              num_layers=CHUNKED_LAYERS)
+    seq = CHUNKED_SEQ
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = M.init(cfg, gen, dev)
+    prompt = torch.randint(0, cfg.vocab_size, (1, seq), generator=gen,
+                           device=dev)
+    batch = {"tokens": prompt}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    args_b = sum(t.numel() * t.element_size() for t in
+                 (*params.values(), *params["layers"].values(), prompt)
+                 if torch.is_tensor(t))
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        lg_c, cache_c = M.make_prefill_step(cfg, attn_impl="chunked")(
+            params, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts_c = dict(kernels.launch_counts)
+        peak = torch.cuda.max_memory_allocated() - (before - args_b)
+        prof = _device_profile("chunked prefill", lambda: M.make_prefill_step(
+            cfg, attn_impl="chunked")(params, batch), "flash")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        lg_k, cache_k = M.make_prefill_step(cfg)(params, batch)
+        torch.cuda.synchronize()
+        wall_k = time.perf_counter() - t0
+        counts_k = dict(kernels.launch_counts)
+    say(f"  {CHUNKED_ARCH} at full width cut to {cfg.num_layers} layers "
+        f"(prefill_32k's batch 32 -> 1, layers 48 -> {cfg.num_layers}), "
+        f"d_model {cfg.d_model}, {cfg.dtype}, 1 x {seq} tokens: chunked "
+        f"prefill {wall:.6f} s ({seq / wall:.1f} tok/s), launches "
+        f"{json.dumps({k: v for k, v in counts_c.items() if v})}; flash "
+        f"kernel prefill {wall_k:.6f} s, launches "
+        f"{json.dumps({k: v for k, v in counts_k.items() if v})}")
+    failures = []
+    if any(counts_c.values()):
+        failures.append(f"the chunked route launched {counts_c}")
+    if counts_k.get("flash_attention") != cfg.num_layers:
+        failures.append(f"the kernel route launched {counts_k}")
+    if not torch.isfinite(lg_c).all():
+        failures.append("non-finite chunked logits")
+    rel = _rel_l2(lg_c, lg_k)
+    states = _state_errors(cache_c, cache_k)
+    top1, rows = _top1(lg_c, lg_k)
+    say(f"  (a) chunked vs kernel prefill: logits rel L2 {rel:.3e} (hold "
+        f"{LM_LOGIT_REL_L2:.3e}); worst state rel L2 "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in states.items()})} "
+        f"(hold {LM_STATE_REL_L2:.3e}); top-1 agrees: {top1} on {rows}/1 "
+        f"rows whose top-2 margin exceeds the error")
+    if rel > LM_LOGIT_REL_L2:
+        failures.append(f"logits rel L2 {rel}")
+    failures += [f"{k} rel L2 {v}" for k, v in states.items()
+                 if v > LM_STATE_REL_L2]
+    if not top1:
+        failures.append("top-1 disagrees")
+    del lg_c, cache_c, lg_k, cache_k, params, prompt, batch
+    torch.cuda.empty_cache()
+    shape = ShapeConfig(f"prefill_1x{seq}", seq, 1, "prefill", 0)
+    est = {impl: lowering.estimate_cell(CHUNKED_ARCH, shape, cfg=cfg,
+                                        attn_impl=impl)
+           for impl in ("chunked", "einsum")}
+    for impl, rep in est.items():
+        if rep.status != "ok":
+            raise AssertionError(f"dry-run {impl}: {rep.error}")
+    gap = est["chunked"].bytes_per_device / peak - 1
+    say(f"  dry-run, chunked: estimated peak "
+        f"{est['chunked'].bytes_per_device / 1e9:.3f} GB, measured "
+        f"{peak / 1e9:.3f} GB (the peak just after the prefill, "
+        f"{(before - args_b) / 1e9:.3f} GB held by earlier phases taken "
+        f"off), gap {gap:+.4f} (hold {DRYRUN_PEAK_TOL}); estimated "
+        f"{est['chunked'].hlo_flops:.4e} FLOPs, model "
+        f"{est['chunked'].model_flops_global:.4e}; trace "
+        f"{est['chunked'].compile_seconds:.3f} s")
+    say(f"  dry-run, einsum (full S x T scores): estimated peak "
+        f"{est['einsum'].bytes_per_device / 1e9:.3f} GB, fits "
+        f"{est['einsum'].fits} (the card's {lowering.HBM_BYTES / 1e9:.0f} "
+        f"GB); estimated {est['einsum'].hlo_flops:.4e} FLOPs")
+    if abs(gap) > DRYRUN_PEAK_TOL:
+        failures.append(f"estimated peak off the measured one by {gap:+.4f}")
+    if failures:
+        raise AssertionError("chunked prefill: " + "; ".join(failures))
+    return {"wall_s": wall, "kernel_wall_s": wall_k, "peak_gb": peak / 1e9,
+            "held_before_gb": (before - args_b) / 1e9,
+            "estimated_peak_gb": est["chunked"].bytes_per_device / 1e9,
+            "peak_gap": gap, "einsum_estimated_peak_gb":
+            est["einsum"].bytes_per_device / 1e9,
+            "einsum_fits": est["einsum"].fits, "logits_rel_l2": rel,
+            "states_rel_l2": states, "launches_chunked": counts_c,
+            "launches_kernel": counts_k, "profile": prof}
+
+
 def run_mesh_tooling(lm: dict, train_rec: dict, parent=None) -> dict:
     """Phase 14: (a) the pod aggregation (under ``--parent`` also with the
     replaced quantize), (b) the dry-run against the card, (c) the dry-run
@@ -4183,6 +4338,14 @@ def run_mesh_tooling(lm: dict, train_rec: dict, parent=None) -> dict:
     pods = run_pod_aggregation(parent=parent)
     say("  (b) the dry-run's estimates of phases 6-8's cells")
     cells = run_dryrun_cells(lm, train_rec)
+    phase6 = lm["gemma3-12b"][1]["holds"]["bf16"]["chunked"]
+    say(f"  (b) phase 6's chunked vs plain prefill at 2 x 2048: logits rel "
+        f"L2 {phase6['rel_l2']:.3e}, worst state rel L2 "
+        f"{max(phase6['states'].values()):.3e} (held there)")
+    t0 = time.perf_counter()
+    chunked = run_chunked_prefill()
+    chunked["part_s"] = time.perf_counter() - t0
+    say(f"  (b) the chunked prefill part: {chunked['part_s']:.3f} s")
     say("  (c) the entry points")
     os.makedirs(os.path.join(HERE, DRYRUN_OUT), exist_ok=True)
     _run_module("dryrun", ["repro_torch.launch.dryrun", "--arch",
@@ -4190,7 +4353,7 @@ def run_mesh_tooling(lm: dict, train_rec: dict, parent=None) -> dict:
                            os.path.join(DRYRUN_OUT, "dryrun_phase14.json")],
                 timeout=120)
     _run_module("roofline", ["repro_torch.roofline"], timeout=60)
-    return {"pods": pods, "dryrun": cells,
+    return {"pods": pods, "dryrun": cells, "chunked_prefill": chunked,
             "phase_s": time.perf_counter() - t_phase}
 
 
@@ -4667,7 +4830,8 @@ def main(argv: list[str] | None = None) -> int:
 
     say(f"[14] the mesh tooling: the pod-axis FL aggregation ({POD_ARCH} x "
         f"{POD_COUNT} pods, exact and int8), the dry-run against phases "
-        f"6-8, the dry-run and roofline entry points")
+        f"6-8 and a {CHUNKED_SEQ}-token chunked prefill, the dry-run and "
+        f"roofline entry points")
     mesh = run_mesh_tooling(lm, train_rec, parent)
     say(f"  phase 14: {mesh['phase_s']:.3f} s")
 

@@ -8,9 +8,15 @@ has no ``--device``: it runs anywhere, and its numbers are the card's
 only through the published peaks it divides by.  Cells that do not fit
 the card are estimated all the same (``fits`` says so).
 
+Attention is costed on the reference's dry-run's routes: ``chunked`` to
+prefill and ``einsum`` to train, unless ``--attn-impl`` names one for
+every cell.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-9b \\
       --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-12b \\
+      --shape prefill_32k --attn-impl einsum
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all \\
       --out build/port_dryrun/dryrun.json
 """
@@ -42,14 +48,15 @@ def _line(rep) -> str:
     return line
 
 
-def run_cells(archs, shapes, *, out_path=None, verbose=True):
+def run_cells(archs, shapes, *, attn_impl=None, out_path=None,
+              verbose=True):
     reports = []
     for arch in archs:
         cfg = get_config(arch)
         for shape_name in shapes:
             if not shape_applicable(cfg, shape_name):
                 continue
-            rep = estimate_cell(arch, shape_name)
+            rep = estimate_cell(arch, shape_name, attn_impl=attn_impl)
             reports.append(rep)
             if verbose:
                 print(_line(rep), flush=True)
@@ -70,6 +77,10 @@ def main(argv=None) -> int:
                     choices=list(SHAPES), help="shape preset (repeatable)")
     ap.add_argument("--all", action="store_true",
                     help="all archs x all shapes")
+    ap.add_argument("--attn-impl", choices=["einsum", "chunked"],
+                    default=None,
+                    help="attention route of every cell (default: chunked "
+                         "to prefill, einsum to train)")
     ap.add_argument("--out", default=None, help="JSON report path")
     args = ap.parse_args(argv)
     if not (args.all or args.arch or args.shape):
@@ -78,7 +89,8 @@ def main(argv=None) -> int:
     archs = args.arch or ARCH_IDS
     shapes = args.shape or list(SHAPES)
     t0 = time.perf_counter()
-    reports = run_cells(archs, shapes, out_path=args.out)
+    reports = run_cells(archs, shapes, attn_impl=args.attn_impl,
+                        out_path=args.out)
     bad = [r for r in reports if r.status == "error"]
     print(f"\n{len(reports)} cells: "
           f"{sum(r.status == 'ok' for r in reports)} ok, "

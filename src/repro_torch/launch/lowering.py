@@ -16,10 +16,14 @@ device, under a :class:`repro_torch.launch.cost.Tally`:
   * the roofline terms at the H100 SXM's published peaks and the
     dominant one, and ``model_flops`` (6·N·D) with the useful ratio.
 
-Attention takes the plain route (``attn_impl="plain"``: full S x T
-scores), as the reference's dry-run lowers einsum or chunked attention
-and never its Pallas kernel; no kernel wrapper is reached.  A step that
-reads a value (a route chosen by the data, the MoE dispatch's counts)
+Attention takes the route the reference's dry-run lowers
+(``_build_lowerable`` in ``repro.launch.lowering``), never a kernel:
+``attn_impl`` where given, else ``"chunked"`` for a prefill (the einsum
+attention 512 queries at a time, so one chunk's scores are alive at
+once) and ``"einsum"`` for a train step (full S x T scores, which its
+backward keeps); a decode step attends over its cache.  No kernel
+wrapper is reached, and every route masks by the positions without
+reading them.  A step that reads a value (the MoE dispatch's counts)
 cannot run on ``meta``: its cell reports ``status="error"`` with the
 reason, and the sweep goes on.  Nothing is placed on any device.
 """
@@ -149,8 +153,10 @@ def auto_grad_accum(shape: ShapeConfig) -> int:
 
 
 def _build_step(cfg: ModelConfig, shape: ShapeConfig,
-                train_cfg: TrainConfig):
-    """(step, args): the cell's step and its ``meta`` arguments."""
+                train_cfg: TrainConfig, attn_impl: Optional[str] = None):
+    """(step, args): the cell's step and its ``meta`` arguments, its
+    attention by ``attn_impl`` (default: the reference's, ``"einsum"``
+    to train, ``"chunked"`` to prefill)."""
     ins = M.input_specs(cfg, shape)
     if shape.mode == "train":
         if train_cfg.grad_accum == 0:
@@ -165,10 +171,12 @@ def _build_step(cfg: ModelConfig, shape: ShapeConfig,
             moments_dtype=train_cfg.moments_dtype)
         # The schedule reads the step counter on the host: a number here.
         state = M.abstract_train_state(cfg, opt)._replace(step=0)
-        return M.make_train_step(cfg, opt, train_cfg), (state, ins["batch"])
+        step = M.make_train_step(cfg, opt, train_cfg,
+                                 attn_impl=attn_impl or "einsum")
+        return step, (state, ins["batch"])
     params = M.abstract_params(cfg)
     if shape.mode == "prefill":
-        return (M.make_prefill_step(cfg, attn_impl="plain"),
+        return (M.make_prefill_step(cfg, attn_impl=attn_impl or "chunked"),
                 (params, ins["batch"]))
     # decode: one step at the cache's last slot (its position is a host
     # number on the port)
@@ -193,11 +201,13 @@ def _storages(tree) -> dict[int, int]:
 def estimate_cell(arch: str, shape: Union[str, ShapeConfig], *,
                   cfg: Optional[ModelConfig] = None,
                   train_cfg: Optional[TrainConfig] = None,
+                  attn_impl: Optional[str] = None,
                   notes: str = "") -> CellReport:
     """The cell's report (see the module docstring); ``shape`` a name of
     ``SHAPES`` or a ShapeConfig, ``cfg`` replacing the arch's config (a
-    cut or smoke variant) and ``train_cfg`` the cell's training
-    overrides."""
+    cut or smoke variant), ``train_cfg`` the cell's training overrides
+    and ``attn_impl`` its attention route (``"einsum"`` or
+    ``"chunked"``; default the reference's for the mode)."""
     cfg = cfg or get_config(arch)
     shape = SHAPES[shape] if isinstance(shape, str) else shape
     rep = CellReport(arch=arch, shape=shape.name, mesh=MESH_NAME,
@@ -214,7 +224,7 @@ def estimate_cell(arch: str, shape: Union[str, ShapeConfig], *,
                 f"train overrides: {over}"
     t0 = time.perf_counter()
     try:
-        step, args = _build_step(cfg, shape, train_cfg)
+        step, args = _build_step(cfg, shape, train_cfg, attn_impl)
         ins = _storages(args)
         grad = torch.enable_grad if shape.mode == "train" else torch.no_grad
         with grad(), cost.Tally() as tally:

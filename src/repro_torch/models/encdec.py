@@ -145,7 +145,11 @@ def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor,
 def _decoder(cfg, params, tokens, enc_out, remat_policy, attn_impl,
              collect=False):
     """The decoder over the whole prompt: hidden (B,S,D), and with
-    ``collect`` the per-layer stacks (k, v, ck, cv)."""
+    ``collect`` the per-layer stacks (k, v, ck, cv).  Self-attention by
+    ``attn_impl``; cross-attention by it too, except that ``"chunked"``
+    chunks the self-attention alone (the reference's cross-attention is
+    its einsum attention)."""
+    cross_impl = "einsum" if attn_impl == "chunked" else attn_impl
     B, S = tokens.shape
     x = L.embed_tokens(params["embed"], tokens)
     x = x + sinusoidal(S, cfg.d_model, x.dtype, x.device)[None]
@@ -164,7 +168,7 @@ def _decoder(cfg, params, tokens, enc_out, remat_policy, attn_impl,
         ck = torch.einsum("btd,dkh->btkh", enc_out, p["cwk"])
         cv = torch.einsum("btd,dkh->btkh", enc_out, p["cwv"])
         co = L.attention(cq, ck, cv, q_pos=pos, kv_pos=epos, causal=False,
-                         impl=attn_impl)
+                         impl=cross_impl)
         h = h + L.out_proj(co, p["cwo"])
         h = h + L.mlp(L.rmsnorm(h, p["mlp_norm"]), p, "gelu")
         return h, k, v, ck, cv
@@ -189,12 +193,14 @@ def decode_train(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
 
 def encdec_loss(cfg: ModelConfig, params: dict, batch: dict, *,
-                remat_policy: str = "dots", **_) -> torch.Tensor:
-    """Mean next-token NLL of the decoder over ``batch["frames"]``,
-    einsum attention (the reference's default)."""
+                remat_policy: str = "dots", attn_impl: str = "einsum",
+                **_) -> torch.Tensor:
+    """Mean next-token NLL of the decoder over ``batch["frames"]``; the
+    encoder's attention einsum, the decoder's by ``attn_impl`` (the
+    reference's default ``"einsum"``, or ``"chunked"``)."""
     enc_out = encode(cfg, params, batch["frames"], remat_policy)
     hidden = decode_train(cfg, params, batch["tokens"], enc_out,
-                          remat_policy)
+                          remat_policy, attn_impl)
     logits = L.logits_from_hidden(hidden, params, False)
     return L.cross_entropy(logits, batch["labels"])
 
@@ -224,8 +230,11 @@ def init_encdec_cache(cfg: ModelConfig, batch: int, max_len: int,
 def encdec_prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                    frames: torch.Tensor, attn_impl: str = "kernel"):
     """Encode the frames, precompute each layer's cross-KV, prefill the
-    decoder's self-KV: (last-position logits (B, Vpad), cache)."""
-    enc_out = encode(cfg, params, frames, "none", attn_impl)
+    decoder's self-KV: (last-position logits (B, Vpad), cache).  For
+    ``attn_impl="chunked"`` the encoder runs the einsum attention, as the
+    reference's does, and the decoder's self-attention is chunked."""
+    enc_out = encode(cfg, params, frames, "none",
+                     "einsum" if attn_impl == "chunked" else attn_impl)
     x, (k, v, ck, cv) = _decoder(cfg, params, tokens, enc_out, "none",
                                  attn_impl, collect=True)
     logits = L.logits_from_hidden(x[:, -1:], params, False)[:, 0]

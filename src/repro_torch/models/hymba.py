@@ -149,9 +149,12 @@ def hymba_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
 
 def hymba_loss(cfg: ModelConfig, params: dict, batch: dict, *,
-               remat_policy: str = "dots", **_) -> torch.Tensor:
-    """Mean next-token NLL, einsum attention (the reference's default)."""
-    hidden = hymba_hidden(cfg, params, batch["tokens"], remat_policy)
+               remat_policy: str = "dots", attn_impl: str = "einsum",
+               **_) -> torch.Tensor:
+    """Mean next-token NLL, attention by ``attn_impl`` (the reference's
+    default ``"einsum"``, or ``"chunked"``)."""
+    hidden = hymba_hidden(cfg, params, batch["tokens"], remat_policy,
+                          attn_impl)
     logits = L.logits_from_hidden(hidden, params, "unembed" not in params)
     return L.cross_entropy(logits, batch["labels"])
 

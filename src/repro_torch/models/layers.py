@@ -8,16 +8,18 @@ Conventions, as in the reference:
    the reference asks for float32 results (``preferred_element_type``) the
    operands are cast to float32 first.
 
-Prefill attention (no ``kv_valid``) goes through the flash attention
-kernel's front door for any sequence length, causal or not, and for
-cross-attention (queries and keys of other lengths); it takes the place
-of both the reference's ``chunked_attention`` and its short-sequence
-einsum.  The kernel masks by index from 0, so a prefill whose mask
-channel is not ``arange`` (a VLM's position ids may start elsewhere)
-takes the masked route instead (:func:`prefill_route`).  The decode step
-(``kv_valid`` given) and training (``impl="einsum"``, the reference's
-default for a loss: the kernel has no backward) run the plain einsum
-attention.  The reference's sharding constraints resolve through
+Serving's prefill attention (no ``kv_valid``) goes through the flash
+attention kernel's front door for any sequence length, causal or not,
+and for cross-attention (queries and keys of other lengths).  The
+kernel masks by index from 0, so a prefill whose mask channel is not
+``arange`` (a VLM's position ids may start elsewhere) takes the masked
+route instead (:func:`prefill_route`).  ``impl="chunked"`` is the
+reference's own prefill route (its default, and its dry-run's):
+:func:`chunked_attention`, the einsum attention a block of queries at a
+time, masked by the positions.  The decode step (``kv_valid`` given)
+and training (``impl="einsum"``, the reference's default for a loss:
+the kernel has no backward) run the plain einsum attention.  The
+reference's sharding constraints resolve through
 :mod:`repro_torch.distributed.sharding`, where on one card
 ``constraint`` is the identity, so the model code calls none.
 """
@@ -31,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
+from repro_torch.launch import cost
 
 
 # --------------------------------------------------------------------------
@@ -143,13 +146,47 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(v.dtype)
 
 
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      q_pos: torch.Tensor, kv_pos: torch.Tensor,
+                      causal: bool = True, window: int = 0,
+                      chunk: int = 512) -> torch.Tensor:
+    """Memory-efficient attention: the queries and their positions cut
+    into ``S // chunk`` chunks, each through :func:`gqa_attention`
+    against all keys, so one chunk's (chunk, T) scores are alive at a
+    time instead of the (S, T) ones.  Without autograd each chunk writes
+    its rows of an output made up front, and under a
+    :class:`~repro_torch.launch.cost.Tally` the loop is traced three
+    chunks deep (:func:`~repro_torch.launch.cost.steps`).  With autograd
+    the chunks' outputs are concatenated and every chunk is traced: a
+    loop traced in part would hold the untraced chunks' outputs until
+    the backward, where the concatenation frees them, and a checkpoint's
+    recompute would free their saved tensors before it."""
+    B, S, H, hd = q.shape
+    if S % chunk:
+        raise ValueError(f"{S} queries do not split into chunks of {chunk}")
+    nq = S // chunk
+
+    def one_chunk(i):
+        rows = slice(i * chunk, (i + 1) * chunk)
+        return gqa_attention(q[:, rows], k, v, q_pos=q_pos[..., rows],
+                             kv_pos=kv_pos, causal=causal, window=window)
+
+    if torch.is_grad_enabled():
+        return torch.cat([one_chunk(i) for i in range(nq)], dim=1)
+    out = q.new_empty((B, S, H, hd), dtype=v.dtype)
+    for i in cost.steps(nq):
+        out[:, i * chunk:(i + 1) * chunk] = one_chunk(i)
+    return out
+
+
 #: attention routes without a cache: the flash attention kernel's front
 #: door, or its plain version (``chip_smoke.py`` holds the one against the
 #: other), for a prefill whose positions run from 0; the masked route (the
 #: einsum attention, masking by the positions themselves) for a prefill
-#: whose positions do not (:func:`prefill_route`); the einsum attention
-#: for training
-PREFILL_IMPLS = ("kernel", "plain", "masked", "einsum")
+#: whose positions do not (:func:`prefill_route`); the reference's chunked
+#: einsum attention (:func:`chunked_attention`), which masks by the
+#: positions too; the einsum attention for training
+PREFILL_IMPLS = ("kernel", "plain", "masked", "chunked", "einsum")
 MASKED = "masked"
 
 
@@ -165,25 +202,33 @@ def prefill_route(impl: str, q_pos: torch.Tensor) -> str:
     """The route of a prefill's attention whose mask channel is ``q_pos``
     (the keys' too): ``impl`` where the positions are ``arange`` (every
     driver of the repo), else :data:`MASKED`.  A semantic route, taken
-    before any launch: the kernel cannot mask by other positions."""
+    before any launch: the kernel cannot mask by other positions.  The
+    routes that mask by the positions (``"chunked"``, ``"masked"``,
+    ``"einsum"``) are kept without reading them."""
     if impl in ("kernel", "plain") and not positions_from_zero(q_pos):
         return MASKED
     return impl
 
 
 def attention(q, k, v, *, q_pos, kv_pos, causal=True, window=0,
-              kv_valid=None, impl: str = "kernel"):
+              kv_valid=None, impl: str = "kernel", chunk: int = 512):
     """Prefill (``kv_valid is None``), ``impl`` ``"kernel"`` or
     ``"plain"``: flash attention, which masks by index from 0 (the caller
     has checked that ``q_pos`` / ``kv_pos`` are ``arange``, see
     :func:`prefill_route`); queries and keys may differ in length.
-    Decode, ``impl="masked"`` and ``impl="einsum"``: einsum attention,
-    masked by the positions (over the populated cache, for decode)."""
+    ``impl="chunked"``: :func:`chunked_attention` where there are more
+    than ``chunk`` queries and no ``kv_valid``, as the reference chunks.
+    Decode, ``impl="masked"``, ``"einsum"`` and ``"chunked"`` otherwise:
+    einsum attention, masked by the positions (over the populated cache,
+    for decode)."""
     if kv_valid is None and impl in ("kernel", "plain"):
         fn = flash_ops if impl == "kernel" else flash_ref
         return fn.flash_attention(q, k, v, causal=causal, window=window)
     if impl not in PREFILL_IMPLS:
         raise ValueError(f"attention impl {impl!r} not in {PREFILL_IMPLS}")
+    if impl == "chunked" and q.shape[1] > chunk and kv_valid is None:
+        return chunked_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
+                                 causal=causal, window=window, chunk=chunk)
     return gqa_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=causal,
                          window=window, kv_valid=kv_valid)
 

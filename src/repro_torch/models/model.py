@@ -16,7 +16,8 @@ Every family of the reference: ``dense``, ``moe`` and ``vlm``
 (transformer), ``encdec`` (whisper), ``ssm`` (xLSTM) and ``hybrid``
 (hymba).  Prefill runs the hand-written kernels (flash attention,
 chunkwise mLSTM); ``attn_impl="plain"`` runs their plain versions
-instead.  Prefill pads nothing: a cache comes back with the prompt's
+instead, and ``attn_impl="chunked"`` the reference's own prefill route
+(its chunked einsum attention; the xLSTM's plain mLSTM).  Prefill pads nothing: a cache comes back with the prompt's
 length, and the caller grows it (``transformer.grow_cache``) before
 decoding past it.  The loss runs what the reference's loss runs (einsum
 attention, ``mlstm_chunked``, the MoE by ``moe_impl``) under
@@ -81,22 +82,23 @@ def abstract_params(cfg: ModelConfig) -> dict:
 # --------------------------------------------------------------------------
 # loss / train step
 # --------------------------------------------------------------------------
-def loss_fn(cfg: ModelConfig, *, remat_policy: str = "dots",
-            loss_chunk: int = 0, moe_impl: str = "scan"
-            ) -> Callable[[Any, dict], torch.Tensor]:
-    """The training loss: einsum attention, ``mlstm_chunked`` and the MoE
+def loss_fn(cfg: ModelConfig, *, attn_impl: str = "einsum",
+            remat_policy: str = "dots", loss_chunk: int = 0,
+            moe_impl: str = "scan") -> Callable[[Any, dict], torch.Tensor]:
+    """The training loss: attention by ``attn_impl`` (``"einsum"``, the
+    reference's default, or ``"chunked"``), ``mlstm_chunked`` and the MoE
     by ``moe_impl`` (``"scan"`` or ``"ragged"``) under ``torch.autograd``,
-    as the reference's default loss (no kernel has a backward, so none
-    sits on it).  ``loss_chunk`` and ``moe_impl`` reach the transformer
-    families, as in the reference."""
+    as the reference's loss (no kernel has a backward, so none sits on
+    it).  ``loss_chunk`` and ``moe_impl`` reach the transformer families,
+    ``attn_impl`` every family but the xLSTM, as in the reference."""
     family = _family(cfg)
     if family == "transformer":
-        return functools.partial(T.decoder_loss, cfg,
+        return functools.partial(T.decoder_loss, cfg, attn_impl=attn_impl,
                                  remat_policy=remat_policy,
                                  loss_chunk=loss_chunk, moe_impl=moe_impl)
     return functools.partial({"encdec": E.encdec_loss, "ssm": X.xlstm_loss,
                               "hybrid": HY.hymba_loss}[family], cfg,
-                             remat_policy=remat_policy)
+                             attn_impl=attn_impl, remat_policy=remat_policy)
 
 
 def batch_to(batch: dict, device: torch.device) -> dict:
@@ -124,14 +126,16 @@ def value_and_grad(lf: Callable, params: Any, batch: dict
 
 
 def make_train_step(cfg: ModelConfig, opt: Optimizer,
-                    train_cfg: Optional[TrainConfig] = None):
-    """``train_step(state, batch) -> (state, metrics)``: the loss and its
-    gradient (accumulated over ``train_cfg.grad_accum`` microbatches in
-    ``accum_dtype``, as the reference's scan does), then one optimizer
-    update.  Metrics: ``loss``, ``grad_norm`` (before clipping), ``lr``,
-    each a 0-d tensor.  The batch goes to the parameters' device."""
+                    train_cfg: Optional[TrainConfig] = None,
+                    attn_impl: str = "einsum"):
+    """``train_step(state, batch) -> (state, metrics)``: the loss (its
+    attention by ``attn_impl``) and its gradient (accumulated over
+    ``train_cfg.grad_accum`` microbatches in ``accum_dtype``, as the
+    reference's scan does), then one optimizer update.  Metrics:
+    ``loss``, ``grad_norm`` (before clipping), ``lr``, each a 0-d tensor.
+    The batch goes to the parameters' device."""
     tc = train_cfg or TrainConfig()
-    lf = loss_fn(cfg, remat_policy=tc.remat_policy,
+    lf = loss_fn(cfg, attn_impl=attn_impl, remat_policy=tc.remat_policy,
                  loss_chunk=tc.loss_chunk, moe_impl=tc.moe_impl)
 
     def _micro(key, val, n, i):

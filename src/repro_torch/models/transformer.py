@@ -13,9 +13,10 @@ window: 0 for global layers, ``sliding_window`` for local ones.
 
 Prefill attention runs the flash attention kernel (``layers.attention``)
 where the positions' mask channel runs from 0, else the masked einsum
-route (``layers.prefill_route``); decode attends over the cache with the
-plain einsum attention, and so does the training loss (``decoder_loss``,
-as the reference's default ``attn_impl="einsum"``).  The MoE block is the
+route (``layers.prefill_route``), or, for ``attn_impl="chunked"``, the
+reference's chunked einsum attention; decode attends over the cache with
+the plain einsum attention, and so does the training loss
+(``decoder_loss``, the reference's default ``attn_impl="einsum"``).  The MoE block is the
 reference's scan over all experts with top-k combine weights (serving
 and the default loss) or, for ``moe_impl="ragged"``, its capacity-grouped
 dispatch with GShard drops, in its one-device form; the expert products
@@ -315,17 +316,20 @@ def decoder_logits(cfg: ModelConfig, params: dict,
 
 
 def decoder_loss(cfg: ModelConfig, params: dict, batch: dict, *,
-                 remat_policy: str = "dots", loss_chunk: int = 0,
-                 moe_impl: str = "scan") -> torch.Tensor:
+                 attn_impl: str = "einsum", remat_policy: str = "dots",
+                 loss_chunk: int = 0, moe_impl: str = "scan"
+                 ) -> torch.Tensor:
     """Mean next-token NLL of ``batch["tokens"]`` against
     ``batch["labels"]`` (labels < 0 masked), with the batch's
-    ``positions`` and ``vision_embeds`` where it has them.  With
-    ``loss_chunk`` dividing the sequence, the logits are formed
-    ``loss_chunk`` positions at a time, never all (B,S,V) at once."""
+    ``positions`` and ``vision_embeds`` where it has them; attention by
+    ``attn_impl`` (``"einsum"`` or ``"chunked"``: no kernel has a
+    backward).  With ``loss_chunk`` dividing the sequence, the logits
+    are formed ``loss_chunk`` positions at a time, never all (B,S,V) at
+    once."""
     hidden = decoder_hidden(cfg, params, batch["tokens"],
                             positions=batch.get("positions"),
                             vision_embeds=batch.get("vision_embeds"),
-                            attn_impl="einsum", remat_policy=remat_policy,
+                            attn_impl=attn_impl, remat_policy=remat_policy,
                             moe_impl=moe_impl)
     labels = batch["labels"]
     if loss_chunk and hidden.shape[1] % loss_chunk == 0:

@@ -243,13 +243,20 @@ def _mlstm_out(x, hh, z, p, di):
     return x + out @ p["w_down"]
 
 
+#: prefill routes that run the mLSTM's plain version
+PLAIN_ROUTES = ("plain", "chunked", "einsum")
+
+
 def _mlstm_seq(q, k, v, i_g, f_g, impl: str):
-    """The prefill mLSTM by route: the kernel or its plain version."""
+    """The prefill mLSTM by route: the kernel, or its plain version for
+    ``"plain"`` and for the attention routes the other families take
+    (``"chunked"``, ``"einsum"``), which have no mLSTM of their own."""
     if impl == "kernel":
         return mlstm_ops.mlstm(q, k, v, i_g, f_g)
-    if impl == "plain":
+    if impl in PLAIN_ROUTES:
         return mlstm_ref.mlstm_parallel(q, k, v, i_g, f_g)
-    raise ValueError(f"mlstm impl {impl!r} not in ('kernel', 'plain')")
+    raise ValueError(f"mlstm impl {impl!r} not in "
+                     f"{('kernel',) + PLAIN_ROUTES}")
 
 
 def mlstm_block(x, p, cfg, *, state=None):
@@ -414,7 +421,9 @@ def xlstm_prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                   impl: str = "kernel"):
     """Process the prompt in parallel, returning last-token logits plus the
     recurrent state ready for decode.  ``impl`` routes the mLSTM through
-    the kernel (``"kernel"``) or its plain version (``"plain"``)."""
+    the kernel (``"kernel"``) or its plain version (``"plain"``, and the
+    other families' attention routes ``"chunked"`` and ``"einsum"``: the
+    reference's prefill takes no route)."""
     d, di, nh, dh = _dims(cfg)
     G, M = _groups(cfg)
     x = L.embed_tokens(params["embed"], tokens)

@@ -16,10 +16,19 @@ and ``repro_torch.roofline``) against the reference's lowering.
 * The smoke dense configurations' prefill FLOPs are within 2% of the
   reference's ``analyze_hlo_text`` on a one-device lowering of the same
   cell with ``attn_impl="einsum"`` (measured gap: 0.0, every count equal,
-  at yi-9b / gemma3-12b / starcoder2-7b, B = 2, S = 64 and 256).
-* A cell that reads a value (a VLM prefill's route, chosen by its
-  positions) reports ``status="error"``; the dry-run and roofline entry
-  points run on one small cell.
+  at yi-9b / gemma3-12b / starcoder2-7b, B = 2, S = 64 and 256), and a
+  smoke qwen2-vl-72b and yi-9b prefill's on the reference's default
+  ``attn_impl="chunked"`` at S = 1024, two chunks (measured gap: 0.0).
+* The chunked route (the default to prefill) costs the einsum route's
+  FLOPs, and its peak lies below the einsum route's by the rows of the
+  scores, their softmax and the bias that a chunk does not hold, less
+  the chunk's own output, counted by hand; its chunk loop, traced three
+  chunks deep, counts as the full loop.
+* A VLM prefill on the reference's routes masks by its positions without
+  reading them, so qwen2-vl-72b ``prefill_32k`` is costed; on the flash
+  route's plain version, chosen by its positions, it reads them and
+  reports ``status="error"``.  The dry-run (with ``--attn-impl`` either
+  way) and roofline entry points run on one small cell.
 """
 
 from __future__ import annotations
@@ -206,11 +215,85 @@ def test_train_and_decode_cells_report_their_terms():
 
 
 def test_data_dependent_and_skipped_cells():
-    rep = lowering.estimate_cell("qwen2-vl-72b",
-                                 ShapeConfig("p", 16, 2, "prefill"),
-                                 cfg=_smoke("qwen2-vl-72b"))
+    shape = ShapeConfig("p", 16, 2, "prefill")
+    for impl in (None, "chunked", "einsum"):
+        rep = lowering.estimate_cell("qwen2-vl-72b", shape,
+                                     cfg=_smoke("qwen2-vl-72b"),
+                                     attn_impl=impl)
+        assert rep.status == "ok", (impl, rep.error)
+    rep = lowering.estimate_cell("qwen2-vl-72b", shape,
+                                 cfg=_smoke("qwen2-vl-72b"),
+                                 attn_impl="plain")
     assert rep.status == "error" and "equal" in rep.error
     assert lowering.estimate_cell("yi-9b", "long_500k").status == "skipped"
+
+
+def test_vlm_prefill_32k_is_costed_on_the_chunked_route():
+    rep = lowering.estimate_cell("qwen2-vl-72b", "prefill_32k")
+    assert rep.status == "ok", rep.error
+    assert rep.hlo_flops > rep.model_flops_global > 0 and not rep.fits
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "yi-9b"])
+def test_smoke_chunked_prefill_flops_match_the_reference_hlo(arch):
+    """At S = 1024 the reference's default prefill route maps two 512-query
+    chunks (a ``while`` loop in its HLO); the port's default traces the
+    same route."""
+    B, S = 2, 1024
+    ref_cfg = ref_smoke(ref_config(arch))
+    ins = RM.input_specs(ref_cfg, RefShape("p", S, B, "prefill"))
+    compiled = jax.jit(RM.make_prefill_step(ref_cfg)).lower(
+        RM.abstract_params(ref_cfg), ins["batch"]).compile()
+    want = analyze_hlo_text(compiled.as_text()).flops
+    rep = lowering.estimate_cell(arch, ShapeConfig("p", S, B, "prefill"),
+                                 cfg=_smoke(arch))
+    assert rep.status == "ok", rep.error
+    assert abs(rep.hlo_flops - want) <= REL_GAP * want
+
+
+@pytest.mark.parametrize("S", [1024, 2048])
+def test_chunked_prefill_saves_the_score_rows(S):
+    """The same FLOPs on both routes.  Each route peaks in its last
+    attention product, with the (rows, T) f32 scores, their softmax and
+    the bias alive: S rows on the einsum route, one chunk's on the
+    chunked route, which also holds its (B, S, H, hd) output, made up
+    front, beside the chunk's (B, chunk, H, hd) product."""
+    B, chunk = 2, 512
+    cfg = _smoke("yi-9b")
+    shape = ShapeConfig("p", S, B, "prefill")
+    rep = {impl: lowering.estimate_cell("yi-9b", shape, cfg=cfg,
+                                        attn_impl=impl)
+           for impl in ("einsum", "chunked")}
+    assert rep["einsum"].hlo_flops == rep["chunked"].hlo_flops
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    saved = (S - chunk) * S * (2 * B * H + 1) * 4 - B * chunk * H * hd * 4
+    assert (rep["einsum"].bytes_per_device
+            - rep["chunked"].bytes_per_device) == saved
+    assert rep["einsum"].argument_bytes == rep["chunked"].argument_bytes
+
+
+@pytest.mark.parametrize("mode,remat", [("prefill", "none"),
+                                        ("train", "none"), ("train", "full")])
+def test_chunk_loop_traced_in_part_counts_as_the_full_loop(monkeypatch, mode,
+                                                           remat):
+    """Four 512-query chunks a layer: the prefill's loop traced three
+    chunks deep (with autograd, every chunk is traced) gives the FLOPs,
+    bytes and peak of the loop run in full."""
+    shape = ShapeConfig("c", 2048, 2, mode)
+    train_cfg = lowering.TrainConfig(remat_policy=remat, grad_accum=2)
+    counts = []
+    for full in (False, True):
+        if full:
+            monkeypatch.setattr(cost, "steps",
+                                lambda n, closed=False: iter(range(n)))
+        step, args = lowering._build_step(_smoke("gemma3-12b"), shape,
+                                          train_cfg, "chunked")
+        grad = torch.enable_grad if mode == "train" else torch.no_grad
+        with grad(), cost.Tally() as tally:
+            tally.hold(args)
+            step(*args)
+        counts.append((tally.flops, tally.bytes, tally.peak))
+    assert counts[0] == counts[1]
 
 
 def test_dryrun_and_roofline_entry_points(tmp_path):
@@ -229,3 +312,22 @@ def test_dryrun_and_roofline_entry_points(tmp_path):
     table = (tmp_path / "roofline.md").read_text()
     assert "| whisper-tiny | decode_32k | h100x1 |" in table
     assert roofline.main(["--dir", str(tmp_path / "none")]) == 1
+
+
+def test_dryrun_attn_impl_flag(tmp_path):
+    """``--attn-impl einsum`` and ``chunked`` on one prefill cell: the
+    same FLOPs, the chunked route's peak the lower."""
+    recs = {}
+    for impl in ("einsum", "chunked"):
+        out = tmp_path / f"{impl}.json"
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "whisper-tiny", "--shape", "prefill_32k", "--attn-impl", impl,
+             "--out", str(out)], capture_output=True, text=True,
+            timeout=300, cwd=ROOT, env=dict(os.environ, PYTHONPATH="src"))
+        assert r.returncode == 0, r.stderr[-2000:]
+        assert "[PASS] whisper-tiny" in r.stdout
+        [recs[impl]] = json.loads(out.read_text())
+    assert recs["einsum"]["hlo_flops"] == recs["chunked"]["hlo_flops"]
+    assert (recs["chunked"]["bytes_per_device"]
+            < recs["einsum"]["bytes_per_device"])
