@@ -209,8 +209,15 @@ Phases, each printed on its own lines; any failure exits non-zero:
    and its peak just after the prefill, which the dry-run's chunked
    estimate of the same cell must meet within DRYRUN_PEAK_TOL, with the
    full-score (``einsum``) estimate and its ``fits`` printed beside it;
-   (c) ``python -m repro_torch.launch.dryrun`` on one cell and ``python
-   -m repro_torch.roofline`` must exit 0 (their files go to
+   (c) the multi-pod dry-run on the card: qwen2-vl-72b train_4k on the
+   production mesh pod16x16 with the reference's overrides, at full
+   width cut to 8 of its 80 layers, costed on ``meta`` and then run as
+   rank 0's program of one step (seeded local shards on the card, the
+   collectives to torch's fake process group): its measured peak within
+   DRYRUN_PEAK_TOL of the estimate, the collectives emitted on the card
+   by kind equal to the trace's, its wall printed beside the estimate's
+   compute time; (d) ``python -m repro_torch.launch.dryrun`` on one cell
+   and ``python -m repro_torch.roofline`` must exit 0 (their files go to
    ``build/port_dryrun/``).
 15. The reference's benchmark harness on the port
    (``repro_torch.bench_run``): (a) all 14 suites in this process, each
@@ -4328,10 +4335,118 @@ def run_chunked_prefill() -> dict:
             "launches_kernel": counts_k, "profile": prof}
 
 
+#: (c) rank 0's program of a production-mesh cell on the card: the
+#: reference's qwen2-vl-72b train_4k on pod16x16 (data=16, model=16) with
+#: its rules override (act_seq over model) and training overrides (bf16
+#: moments, bf16 gradient accumulation), at full width cut in depth from
+#: 80 layers to MESH_RANK_LAYERS, its local shards seeded by
+#: MESH_RANK_SEED; the collectives go to a fake process group
+MESH_RANK_ARCH, MESH_RANK_SHAPE = "qwen2-vl-72b", "train_4k"
+MESH_RANK_LAYERS, MESH_RANK_SEED = 8, 0
+
+
+def run_mesh_rank() -> dict:
+    """(c) The multi-pod dry-run held on the card: the MESH_RANK cell
+    costed on ``meta`` (``estimate_cell`` on ``pod16x16``), then rank 0's
+    program of one step run on the card, every argument a seeded local
+    shard of a DTensor on a CUDA ``DeviceMesh`` over torch's ``"fake"``
+    process group (its collectives move no data; their outputs are
+    allocated).  Holds the step's measured peak (the most bytes allocated
+    during it, less those held before it beyond its own arguments) within
+    DRYRUN_PEAK_TOL of the estimate's ``bytes_per_device``, and the
+    collectives the card emitted, by kind, equal to the trace's; prints the
+    step's wall beside the estimate's ``compute_s`` without holding it."""
+    import dataclasses
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import cost, lowering
+    from repro_torch.launch.mesh import make_production_mesh, mesh_name
+
+    cfg = dataclasses.replace(get_config(MESH_RANK_ARCH),
+                              num_layers=MESH_RANK_LAYERS)
+    mesh = make_production_mesh()
+    rep = lowering.estimate_cell(MESH_RANK_ARCH, MESH_RANK_SHAPE, cfg=cfg,
+                                 mesh=mesh)
+    if rep.status != "ok":
+        raise AssertionError(f"mesh dry-run: {rep.error}")
+    say(f"  (c) {MESH_RANK_ARCH} {MESH_RANK_SHAPE} on {mesh_name(mesh)} "
+        f"({mesh.size} devices), full width (d_model {cfg.d_model}) cut "
+        f"to {cfg.num_layers} of 80 layers, {rep.notes}: estimated on "
+        f"meta in {rep.compile_seconds:.3f} s: peak "
+        f"{rep.bytes_per_device / 1e9:.4f} GB a device (arguments "
+        f"{rep.argument_bytes / 1e9:.4f} GB), {rep.hlo_flops:.4e} FLOPs, "
+        f"collectives {rep.collective_bytes:.4e} B "
+        f"{json.dumps(rep.collective_counts, sort_keys=True)}; compute_s "
+        f"{rep.compute_s:.6f}, memory_s {rep.memory_s:.6f}, collective_s "
+        f"{rep.collective_s:.6f} ({rep.dominant}; published peaks)")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(MESH_RANK_SEED)
+
+    def make(shape, dtype):
+        if dtype.is_floating_point:
+            return (torch.randn(shape, generator=gen, device=dev) * 0.02
+                    ).to(dtype)
+        return torch.randint(0, 4096, shape, generator=gen, device=dev,
+                             dtype=dtype)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with lowering.cell_program(MESH_RANK_ARCH, MESH_RANK_SHAPE, cfg=cfg,
+                               mesh=mesh, make=make) as (step, args, _):
+        args_b = sum(lowering._storages(args).values())
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        with torch.enable_grad(), cost.Collectives() as coll:
+            t0 = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - (before - args_b)
+        launches = {k: v for k, v in kernels.launch_counts.items() if v}
+        local_shape = tuple(out[0].params["layers"]["wq"].to_local().shape)
+        del out, args, step
+    torch.cuda.empty_cache()
+    gap = rep.bytes_per_device / peak - 1
+    say(f"  (c) rank 0's step on the card: {wall:.6f} s wall (estimate's "
+        f"compute_s {rep.compute_s:.6f} s, printed, not held); measured "
+        f"peak {peak / 1e9:.4f} GB ({(before - args_b) / 1e9:.4f} GB held "
+        f"before it beyond its {args_b / 1e9:.4f} GB of arguments taken "
+        f"off), estimate {rep.bytes_per_device / 1e9:.4f} GB, gap "
+        f"{gap:+.4f} (hold {DRYRUN_PEAK_TOL}); collectives emitted "
+        f"{json.dumps(coll.counts, sort_keys=True)}, {coll.bytes:.4e} B "
+        f"(the trace's {json.dumps(rep.collective_counts, sort_keys=True)}"
+        f", {rep.collective_bytes:.4e} B); local wq shard {local_shape}; "
+        f"launches {json.dumps(launches)}")
+    failures = []
+    if abs(gap) > DRYRUN_PEAK_TOL:
+        failures.append(f"estimated peak off the measured one by {gap:+.4f}")
+    if coll.counts != rep.collective_counts:
+        failures.append(f"collectives emitted {coll.counts} != traced "
+                        f"{rep.collective_counts}")
+    if failures:
+        raise AssertionError("mesh rank: " + "; ".join(failures))
+    return {"arch": MESH_RANK_ARCH, "shape": MESH_RANK_SHAPE,
+            "mesh": mesh_name(mesh), "layers": cfg.num_layers,
+            "wall_s": wall, "compute_s": rep.compute_s,
+            "estimated_peak_gb": rep.bytes_per_device / 1e9,
+            "measured_peak_gb": peak / 1e9, "peak_gap": gap,
+            "held_before_gb": (before - args_b) / 1e9,
+            "collective_counts": coll.counts,
+            "collective_bytes": coll.bytes,
+            "traced_collective_counts": rep.collective_counts,
+            "traced_collective_bytes": rep.collective_bytes,
+            "trace_s": rep.compile_seconds, "launches": launches}
+
+
 def run_mesh_tooling(lm: dict, train_rec: dict, parent=None) -> dict:
     """Phase 14: (a) the pod aggregation (under ``--parent`` also with the
-    replaced quantize), (b) the dry-run against the card, (c) the dry-run
-    and roofline entry points as subprocesses."""
+    replaced quantize), (b) the dry-run against the card, (c) the
+    multi-pod dry-run against rank 0's program on the card, (d) the
+    dry-run and roofline entry points as subprocesses."""
     t_phase = time.perf_counter()
     say(f"  (a) pod aggregation: {POD_ARCH} x {POD_COUNT} pods, exact and "
         f"int8")
@@ -4346,7 +4461,11 @@ def run_mesh_tooling(lm: dict, train_rec: dict, parent=None) -> dict:
     chunked = run_chunked_prefill()
     chunked["part_s"] = time.perf_counter() - t0
     say(f"  (b) the chunked prefill part: {chunked['part_s']:.3f} s")
-    say("  (c) the entry points")
+    t0 = time.perf_counter()
+    rank = run_mesh_rank()
+    rank["part_s"] = time.perf_counter() - t0
+    say(f"  (c) the mesh rank part: {rank['part_s']:.3f} s")
+    say("  (d) the entry points")
     os.makedirs(os.path.join(HERE, DRYRUN_OUT), exist_ok=True)
     _run_module("dryrun", ["repro_torch.launch.dryrun", "--arch",
                            "xlstm-350m", "--shape", "prefill_32k", "--out",
@@ -4354,7 +4473,7 @@ def run_mesh_tooling(lm: dict, train_rec: dict, parent=None) -> dict:
                 timeout=120)
     _run_module("roofline", ["repro_torch.roofline"], timeout=60)
     return {"pods": pods, "dryrun": cells, "chunked_prefill": chunked,
-            "phase_s": time.perf_counter() - t_phase}
+            "mesh_rank": rank, "phase_s": time.perf_counter() - t_phase}
 
 
 #: Every kernel's wrapper, by (family, wrapper name), for phase 15's calls
@@ -4830,8 +4949,10 @@ def main(argv: list[str] | None = None) -> int:
 
     say(f"[14] the mesh tooling: the pod-axis FL aggregation ({POD_ARCH} x "
         f"{POD_COUNT} pods, exact and int8), the dry-run against phases "
-        f"6-8 and a {CHUNKED_SEQ}-token chunked prefill, the dry-run and "
-        f"roofline entry points")
+        f"6-8 and a {CHUNKED_SEQ}-token chunked prefill, the multi-pod "
+        f"dry-run against rank 0's program ({MESH_RANK_ARCH} "
+        f"{MESH_RANK_SHAPE} on pod16x16, {MESH_RANK_LAYERS} layers), the "
+        f"dry-run and roofline entry points")
     mesh = run_mesh_tooling(lm, train_rec, parent)
     say(f"  phase 14: {mesh['phase_s']:.3f} s")
 

@@ -6,8 +6,15 @@ active rule set (chosen per arch x shape) resolves them to mesh axes.  The
 rules read only a mesh's axis names and sizes, so they resolve for any
 mesh shape, the production TPU shapes (16, 16) and (2, 16, 16) included,
 which no card holds: a :class:`Mesh` may be a description without
-devices.  On one card nothing is placed: :func:`constraint` is the
-identity, and there is no process group.
+devices.  With no device mesh active (one card) nothing is placed:
+:func:`constraint` is the identity, and there is no process group.
+Inside :func:`repro_torch.launch.mesh.device_mesh` a torch ``DeviceMesh``
+of the mesh's shape is active: a tensor's spec becomes DTensor
+placements (:func:`placements`, a mesh axis ``Shard(dim)`` of the tensor
+axis that names it, else ``Replicate()``), :func:`shard_tree` lays a tree
+out on it, and :func:`constraint` redistributes to the named sharding,
+as the reference's ``with_sharding_constraint`` has XLA's partitioner
+insert the collectives.
 
 Rule presets:
  * TRAIN_RULES     — FSDP(data) x TP(model); batch over (pod, data).
@@ -20,7 +27,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import threading
+import functools
+import sys
+import types
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
@@ -134,7 +143,10 @@ def rules_for(cfg, shape, mesh: Mesh, *, base: dict | None = None) -> dict:
     return rules
 
 
-_STATE = threading.local()
+# Process-wide, not thread-local: the autograd engine runs a CUDA backward
+# (and a checkpoint's recompute inside it) on its own device threads, which
+# must see the mesh the forward ran under.
+_STATE = types.SimpleNamespace()
 
 
 def _get() -> tuple[Optional[Mesh], dict]:
@@ -143,19 +155,31 @@ def _get() -> tuple[Optional[Mesh], dict]:
 
 
 @contextlib.contextmanager
-def use_mesh(mesh: Optional[Mesh], rules: Optional[dict] = None):
-    """Activate (mesh, rules) for :func:`logical_spec` inside this block."""
-    prev = _get()
+def use_mesh(mesh: Optional[Mesh], rules: Optional[dict] = None,
+             device_mesh=None):
+    """Activate (mesh, rules) for :func:`logical_spec` inside this block,
+    and ``device_mesh`` (a torch ``DeviceMesh`` of ``mesh``'s shape) for
+    :func:`constraint` and :func:`shard_tree`."""
+    if device_mesh is not None and tuple(device_mesh.shape) != mesh.shape:
+        raise ValueError(f"device mesh {tuple(device_mesh.shape)} is not "
+                         f"the mesh {mesh.shape}")
+    prev = _get() + (active_device_mesh(),)
     _STATE.mesh = mesh
     _STATE.rules = rules if rules is not None else TRAIN_RULES
+    _STATE.device_mesh = device_mesh
     try:
         yield
     finally:
-        _STATE.mesh, _STATE.rules = prev
+        _STATE.mesh, _STATE.rules, _STATE.device_mesh = prev
 
 
 def active_mesh() -> Optional[Mesh]:
     return _get()[0]
+
+
+def active_device_mesh():
+    """The torch ``DeviceMesh`` tensors are laid out on, or ``None``."""
+    return getattr(_STATE, "device_mesh", None)
 
 
 def logical_spec(*logical_axes: Optional[str]) -> tuple:
@@ -181,10 +205,345 @@ def logical_spec(*logical_axes: Optional[str]) -> tuple:
     return tuple(out)
 
 
+def placements(spec: tuple, mesh: Mesh) -> list:
+    """DTensor placements of a tensor whose axes resolve to ``spec`` (a
+    :func:`logical_spec`): each mesh axis ``Shard(d)`` where tensor axis
+    ``d`` names it (alone or in a tuple, in the mesh's order, as a
+    ``PartitionSpec`` splits), ``Replicate()`` where none does."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = [Replicate()] * len(mesh.axis_names)
+    for dim, entry in enumerate(spec):
+        for name in (entry if isinstance(entry, tuple) else (entry,)):
+            if name is not None:
+                out[mesh.axis_names.index(name)] = Shard(dim)
+    return out
+
+
+def shard_shape(shape, spec: tuple, mesh: Mesh) -> tuple:
+    """The per-device shape of a ``shape`` tensor laid out by ``spec``
+    (device 0's: a dimension that does not divide keeps the larger
+    chunks first, as ``torch.chunk`` splits)."""
+    sizes = dict(zip(mesh.axis_names, mesh.shape))
+    out = list(shape)
+    for dim, entry in enumerate(spec):
+        for name in (entry if isinstance(entry, tuple) else (entry,)):
+            if name is not None:
+                out[dim] = -(-out[dim] // sizes[name])
+    return tuple(out)
+
+
+def mesh_axes(logical_axis: str) -> list[int]:
+    """The active mesh's axes (their indices) that ``logical_axis``
+    resolves to under the active rules, in the mesh's order."""
+    mesh = active_mesh()
+    [entry] = logical_spec(logical_axis)
+    return [mesh.axis_names.index(n) for n in
+            (entry if isinstance(entry, tuple) else (entry,))
+            if n is not None]
+
+
+def splits(logical_axis: str) -> bool:
+    """Whether the active device mesh splits ``logical_axis`` over more
+    than one device (never with no device mesh, as on one card)."""
+    if active_device_mesh() is None:
+        return False
+    return any(active_mesh().shape[d] > 1 for d in mesh_axes(logical_axis))
+
+
+def contiguous_strides(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape`` (no tensor made,
+    so a tally counts nothing)."""
+    out, n = [], 1
+    for d in reversed(tuple(shape)):
+        out.append(n)
+        n *= d
+    return tuple(reversed(out))
+
+
+def is_distributed(x) -> bool:
+    """Whether ``x`` is a DTensor (a tensor laid out on a device mesh)."""
+    dtensor = sys.modules.get("torch.distributed.tensor")
+    return dtensor is not None and isinstance(x, dtensor.DTensor)
+
+
+def local(x):
+    """The device's own shard of ``x`` (``x`` itself if not laid out)."""
+    return x._local_tensor if is_distributed(x) else x
+
+
+def distribute(x: torch.Tensor, axes: tuple, make=None):
+    """``x`` laid out on the active device mesh by the logical ``axes``:
+    a DTensor of ``x``'s global shape whose local shard is
+    ``make(shape, dtype)`` (default: an empty tensor on ``x``'s device;
+    ``x`` itself only gives the shape and dtype).  Non-tensors pass."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, torch.Tensor):
+        return x
+    mesh, dm = active_mesh(), active_device_mesh()
+    spec = logical_spec(*axes)
+    shape = shard_shape(tuple(x.shape), spec, mesh)
+    loc = (make(shape, x.dtype) if make is not None
+           else torch.empty(shape, dtype=x.dtype, device=x.device))
+    return DTensor.from_local(loc, dm, placements(spec, mesh),
+                              run_check=False, shape=x.shape,
+                              stride=contiguous_strides(x.shape))
+
+
+def shard_tree(tree: Any, spec_tree: Any, make=None) -> Any:
+    """:func:`distribute` over a tree and its logical-axis tree (dicts,
+    lists and NamedTuples alike; a leaf whose spec is ``()`` and which
+    is no tensor, a host number, stays as it is)."""
+    if _is_spec_leaf(spec_tree):
+        return distribute(tree, spec_tree, make)
+    if isinstance(spec_tree, dict):
+        return {k: shard_tree(tree[k], spec_tree[k], make) for k in tree}
+    if isinstance(spec_tree, tuple) and hasattr(spec_tree, "_fields"):
+        return type(tree)(*(shard_tree(t, s, make)
+                            for t, s in zip(tree, spec_tree)))
+    if isinstance(spec_tree, (list, tuple)):
+        return type(tree)(shard_tree(t, s, make)
+                          for t, s in zip(tree, spec_tree))
+    raise TypeError(f"not a spec tree: {spec_tree!r}")
+
+
+def _wrap(t, axes):
+    """A device's shard ``t`` as the DTensor laid out by ``axes``."""
+    from torch.distributed.tensor import DTensor
+    dm, mesh = active_device_mesh(), active_mesh()
+    spec = logical_spec(*axes)
+    return DTensor.from_local(t, dm, placements(spec, mesh), run_check=False)
+
+
+def einsum(eq: str, *operands, local: Optional[Callable] = None):
+    """``torch.einsum(eq, *operands)``; where an operand is laid out on a
+    device mesh, each mesh axis placed by one rule (XLA's partitioner's
+    for a dot) and the einsum run on the local shards, never through
+    DTensor's reshapes of it (which cannot flatten a split axis that is
+    not the leftmost of its group): of the letters the operands split on
+    that mesh axis, the one over the most operand bytes stays split (an
+    operand holding it whole is sliced, one splitting another letter is
+    gathered, a pending sum is reduced first), and the result is split
+    along it, or a partial sum where it is contracted.  ``local`` computes
+    the product of the local shards (default ``torch.einsum(eq, ...)``)."""
+    local = local or functools.partial(torch.einsum, eq)
+    if not any(is_distributed(o) for o in operands):
+        return local(*operands)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    dm = next(o.device_mesh for o in operands if is_distributed(o))
+    ins, out = eq.replace(" ", "").split("->")
+    letters = ins.split(",")
+    ops = [o if is_distributed(o) else
+           DTensor.from_local(o, dm, [Replicate()] * dm.ndim,
+                              run_check=False) for o in operands]
+    ops = [o.redistribute(dm, [Replicate() if p.is_partial() else p
+                               for p in o.placements])
+           if any(p.is_partial() for p in o.placements) else o for o in ops]
+    pls = [list(o.placements) for o in ops]
+    grads = [[Replicate()] * dm.ndim for _ in ops]
+    out_pl = []
+    for m in range(dm.ndim):
+        if dm.shape[m] == 1:          # one device holds every axis whole
+            out_pl.append(Replicate())
+            for i in range(len(ops)):
+                pls[i][m] = grads[i][m] = Replicate()
+            continue
+        weight: dict[str, int] = {}
+        for o, ls, pl in zip(ops, letters, pls):
+            if pl[m].is_shard():
+                key = ls[pl[m].dim]
+                weight[key] = weight.get(key, 0) + o.numel() * \
+                    o.element_size()
+        keep = max(weight, key=weight.get) if weight else None
+        for i, ls in enumerate(letters):
+            if keep is not None and keep in ls:
+                pls[i][m] = grads[i][m] = Shard(ls.index(keep))
+            else:
+                pls[i][m] = Replicate()
+                grads[i][m] = Partial() if keep is not None else Replicate()
+        out_pl.append(Replicate() if keep is None else
+                      Shard(out.index(keep)) if keep in out else Partial())
+    sizes = {c: n for o, ls in zip(ops, letters) for c, n in zip(ls, o.shape)}
+    shape = torch.Size(sizes[c] for c in out)
+    # a redistribute to the same layout would reduce a pending gradient
+    # sum on its way back; skipping it leaves that to the operand's own
+    # layout (an FSDP gather's way back is then the reduce-scatter)
+    locs = [(o if tuple(pl) == tuple(o.placements) else
+             o.redistribute(dm, pl)).to_local(grad_placements=g)
+            for o, pl, g in zip(ops, pls, grads)]
+    return DTensor.from_local(local(*locs), dm, out_pl,
+                              run_check=False, shape=shape,
+                              stride=contiguous_strides(shape))
+
+
+def matmul(a, b):
+    """``a @ b`` for a weight ``b`` (K, N) or its transpose; on a device
+    mesh through :func:`einsum`, so the product runs on the local shards
+    in the layout its operands name."""
+    lead = "abcdefgh"[:a.dim() - 1]
+    return einsum(f"{lead}k,kn->{lead}n", a, b, local=torch.matmul)
+
+
+def local_map(fn: Callable, in_axes: tuple, out_axes: Any) -> Callable:
+    """``fn`` run on each device's shards, as the reference's
+    ``shard_map``: on a device mesh each tensor argument is laid out by
+    its entry of ``in_axes`` (logical axes; ``None`` passes the argument
+    as it is, a tensor not laid out given whole), ``fn`` gets the local
+    shards (:func:`shard_of`), and its tensor results become DTensors
+    laid out by ``out_axes`` (one tuple, or a tree of them as the results
+    nest).
+    The layouts are the op's sharding rule, for ops DTensor has none for
+    (a scan, a cumulative sum) or lays out badly (an attention's
+    flattened batch and head axes).  With no device mesh, ``fn``."""
+    def mapped(*args, **kwargs):
+        if active_device_mesh() is None:
+            return fn(*args, **kwargs)
+        locs = [shard_of(constraint(a, *axes)) if axes is not None
+                and isinstance(a, torch.Tensor) else a
+                for a, axes in zip(args, in_axes)]
+        return wrap(fn(*locs, **kwargs), out_axes)
+
+    def wrap(out, axes):
+        if axes is None or not isinstance(out, (torch.Tensor, tuple, list)):
+            return out
+        if _is_spec_leaf(axes):
+            return _wrap(out, axes)
+        return type(out)(wrap(o, ax) for o, ax in zip(out, axes))
+    return mapped
+
+
+def shard_of(x):
+    """``x.to_local()`` for a local computation over the batch shards:
+    where ``x`` is whole on a mesh axis that splits the batch (a weight),
+    each device's gradient of it is a partial sum over that axis."""
+    from torch.distributed.tensor import Partial
+    batch = set(mesh_axes("batch"))
+    return x.to_local(grad_placements=[
+        Partial() if p.is_replicate() and d in batch else p
+        for d, p in enumerate(x.placements)])
+
+
+def mesh_coordinate(logical_axis: str) -> tuple[int, int]:
+    """(this device's index, the number of devices) along the mesh axes
+    ``logical_axis`` resolves to (row-major over them): which shard of a
+    split axis the device holds.  (0, 1) with no device mesh."""
+    dm = active_device_mesh()
+    if dm is None:
+        return 0, 1
+    coord = dm.get_coordinate() or [0] * dm.ndim
+    idx, ways = 0, 1
+    for d in mesh_axes(logical_axis):
+        idx, ways = idx * dm.shape[d] + coord[d], ways * dm.shape[d]
+    return idx, ways
+
+
+def all_reduce(t: torch.Tensor, op: str, logical_axis: str) -> torch.Tensor:
+    """``t`` (a device's local tensor) reduced by ``op`` (``"sum"`` or
+    ``"max"``) across the devices that split ``logical_axis``, one
+    functional all-reduce a mesh axis; ``t`` with no device mesh."""
+    dm = active_device_mesh()
+    if dm is None:
+        return t
+    for d in mesh_axes(logical_axis):
+        if dm.shape[d] > 1:
+            t = all_reduce_mesh_dim(t, op, d)
+    return t
+
+
+def all_reduce_mesh_dim(t: torch.Tensor, op: str, mesh_dim: int
+                        ) -> torch.Tensor:
+    """``t`` (a device's local tensor) reduced by ``op`` across the
+    active device mesh's axis ``mesh_dim``."""
+    return _AllReduce.apply(t, op, (active_device_mesh(), mesh_dim))
+
+
+class _AllReduce(torch.autograd.Function):
+    """A functional all-reduce whose gradient is the all-reduced
+    gradient (``psum``'s transpose in the reference's ``shard_map``)."""
+
+    @staticmethod
+    def forward(ctx, t, op, group):
+        from torch.distributed._functional_collectives import (all_reduce,
+                                                               wait_tensor)
+        ctx.group = group
+        return wait_tensor(all_reduce(t, op, group))
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed._functional_collectives import (all_reduce,
+                                                               wait_tensor)
+        return wait_tensor(all_reduce(grad.contiguous(), "sum",
+                                      ctx.group)), None, None
+
+
+def all_gather(t: torch.Tensor, dim: int, logical_axis: str) -> torch.Tensor:
+    """``t`` (a device's local tensor) concatenated along ``dim`` across
+    the devices that split ``logical_axis`` (a functional all-gather a
+    mesh axis, its gradient the reduce-scatter); ``t`` with no device
+    mesh."""
+    dm = active_device_mesh()
+    if dm is None:
+        return t
+    from torch.distributed._functional_collectives import (
+        all_gather_tensor_autograd, wait_tensor)
+    for d in reversed(mesh_axes(logical_axis)):
+        if dm.shape[d] > 1:
+            t = wait_tensor(all_gather_tensor_autograd(t.contiguous(), dim,
+                                                       (dm, d)))
+    return t
+
+
+def gather_weights(tree: Any) -> Any:
+    """FSDP's gather: each laid-out tensor of ``tree`` (a layer's weights)
+    replicated over the mesh axes that the ``w_data`` and ``embed_d``
+    rules name, just before its use, as XLA's partitioner all-gathers an
+    FSDP-sharded weight for a matmul whose batch lies on the same axis
+    (the gradient's way back is the reduce-scatter).  Everything else
+    passes."""
+    dm = active_device_mesh()
+    if dm is None:
+        return tree
+    from torch.distributed.tensor import Replicate
+    dims = set(mesh_axes("w_data") + mesh_axes("embed_d"))
+
+    def gather(x):
+        if not is_distributed(x) or not dims:
+            return x
+        pl = list(x.placements)
+        for d in dims:
+            pl[d] = Replicate()
+        return x.redistribute(dm, pl)
+
+    def walk(t):
+        return ({k: walk(v) for k, v in t.items()} if isinstance(t, dict)
+                else gather(t))
+    return walk(tree)
+
+
 def constraint(x, *logical_axes: Optional[str]):
-    """The reference's ``with_sharding_constraint``: on one card there is
-    nothing to place, so ``x`` itself."""
-    return x
+    """The reference's ``with_sharding_constraint``: ``x`` redistributed
+    to the named sharding on the active device mesh (a tensor not yet
+    laid out counts as replicated); with none active, as on one card,
+    ``x`` itself."""
+    dm = active_device_mesh()
+    if dm is None:
+        return x
+    from torch.distributed.tensor import DTensor, Replicate
+    if not is_distributed(x):
+        x = DTensor.from_local(x, dm, [Replicate()] * dm.ndim,
+                               run_check=False)
+    # a mesh axis of one device holds the whole axis either way
+    pl = [cur if n == 1 else want for cur, want, n in zip(
+        x.placements, placements(logical_spec(*logical_axes),
+                                 active_mesh()), dm.shape)]
+    if tuple(pl) == tuple(x.placements):
+        return x
+    x = x.redistribute(dm, pl)
+    loc = x.to_local()
+    if loc.is_contiguous():
+        return x
+    # a slice of a replicated axis: made contiguous, as XLA lays it out
+    return DTensor.from_local(loc.contiguous(), dm, pl, run_check=False,
+                              shape=x.shape, stride=x.stride())
 
 
 class NamedSharding(NamedTuple):

@@ -12,7 +12,19 @@ A torch program produces no HLO, so nothing is parsed: :class:`Tally` is a
     allocations free), the reference's per-instruction upper bound
     (``hlo_bytes``);
   * ``peak``: the most bytes alive at once, each storage counted from the
-    op that makes it until the last tensor on it is freed.
+    op that makes it until the last tensor on it is freed;
+  * ``collective_bytes`` and ``collective_counts``: each collective a
+    step on DTensors emits (``_c10d_functional``'s all-gather,
+    all-reduce, reduce-scatter and all-to-all, and DTensor's
+    ``shard_dim_alltoall``), by the reference's rule:
+    bytes a device moves ~ 2 x the buffer for an all-reduce, 1 x for the
+    others, the buffer of a reduce-style op the larger of its operand and
+    its result (ring algorithms, (k - 1) / k ~ 1).
+
+A tensor subclass (a DTensor, a collective's pending result) is passed
+on to its own dispatch, so the tally counts the local ops it runs: on a
+device mesh every number is a device's.  The ops DTensor runs on fake
+tensors to propagate shapes are not counted.
 
 An eager Python loop over layers is counted once per iteration by
 construction.  Loops whose iterations repeat the same ops on the same
@@ -29,6 +41,7 @@ Outside a tally :func:`steps` is ``range``.
 
 from __future__ import annotations
 
+import sys
 import threading
 import weakref
 from typing import Iterator, Optional
@@ -42,8 +55,14 @@ from torch.utils.flop_counter import flop_registry
 _STATE = threading.local()
 
 
+def _local(t):
+    """A DTensor's local shard; any other tensor itself."""
+    return getattr(t, "_local_tensor", t)
+
+
 def _tensors(tree) -> list:
-    return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
+    return [_local(t) for t in tree_flatten(tree)[0]
+            if isinstance(t, torch.Tensor)]
 
 
 def _is_view(func) -> bool:
@@ -64,6 +83,54 @@ def nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+#: ``_c10d_functional`` ops (and DTensor's own all-to-all) -> (the
+#: reference's HLO name, multiplier, whether the buffer is the larger of
+#: operand and result)
+COLLECTIVES = {
+    "shard_dim_alltoall": ("all-to-all", 1.0, True),
+    "all_reduce": ("all-reduce", 2.0, True),
+    "all_reduce_coalesced": ("all-reduce", 2.0, True),
+    "all_gather_into_tensor": ("all-gather", 1.0, False),
+    "all_gather_into_tensor_coalesced": ("all-gather", 1.0, False),
+    "reduce_scatter_tensor": ("reduce-scatter", 1.0, True),
+    "reduce_scatter_tensor_coalesced": ("reduce-scatter", 1.0, True),
+    "all_to_all_single": ("all-to-all", 1.0, True),
+}
+
+
+def collective(func, args, kwargs, out) -> tuple | None:
+    """``(kind, bytes)`` of a collective op (the reference's rule, see
+    the module docstring), or ``None`` for any other op."""
+    if func.namespace not in ("_c10d_functional", "_dtensor"):
+        return None
+    rule = COLLECTIVES.get(func._schema.name.split("::")[-1])
+    if rule is None:
+        return None
+    kind, mult, reduce_style = rule
+    buf = sum(nbytes(t) for t in _tensors(out))
+    if reduce_style:
+        buf = max(buf, sum(nbytes(t) for t in _tensors((args, kwargs))))
+    return kind, mult * buf
+
+
+#: the tensor subclasses whose own dispatch runs local ops: a DTensor, a
+#: collective's pending result
+_WRAPPERS = ("DTensor", "AsyncCollectiveTensor")
+
+
+def _subclassed(types) -> bool:
+    """Whether an op's tensors include a :data:`_WRAPPERS` subclass."""
+    return any(t.__name__ in _WRAPPERS for t in types)
+
+
+def _propagating() -> bool:
+    """Whether DTensor is running an op on fake tensors to propagate its
+    shapes (a fake mode is active), which no device runs."""
+    fake = sys.modules.get("torch._subclasses.fake_tensor")
+    return fake is not None and torch._C._get_dispatch_mode(
+        torch._C._TorchDispatchModeKey.FAKE) is not None
+
+
 class Tally(TorchDispatchMode):
     """FLOPs, bytes and live / peak bytes of the ops dispatched inside
     ``with Tally() as tally:`` (see the module docstring).  :meth:`hold`
@@ -76,6 +143,8 @@ class Tally(TorchDispatchMode):
         self.bytes = 0
         self.live = 0
         self.peak = 0
+        self.collective_bytes = 0.0
+        self.collective_counts: dict[str, int] = {}
         self._storages: dict[int, weakref.ref] = {}
         # traced loops whose backward is still to come: [first and last
         # autograd sequence number of the second iteration's nodes, the
@@ -99,8 +168,8 @@ class Tally(TorchDispatchMode):
         n = st.nbytes()
 
         def freed(_ref, key=key, n=n):
-            self._storages.pop(key, None)
-            self.live -= n
+            if self._storages.pop(key, None) is not None:
+                self.live -= n
         self._storages[key] = weakref.ref(st, freed)
         self.live += n
         self.peak = max(self.peak, self.live)
@@ -128,11 +197,28 @@ class Tally(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if _subclassed(types):
+            return NotImplemented
         out = func(*args, **kwargs)
-        if _is_view(func):
+        if _is_view(func) or _propagating():
             return out
         k = self._repeats()
         results = _tensors(out)
+        coll = collective(func, args, kwargs, out)
+        if coll is not None:
+            self.collective_bytes += k * coll[1]
+            self.collective_counts[coll[0]] = \
+                self.collective_counts.get(coll[0], 0) + k
+        elif func.namespace == "_c10d_functional":
+            # a wait or an autograd wrapper: no traffic, and on the device
+            # its result is its operand; on meta a fresh tensor, so the
+            # operand's bytes move to it
+            for t in _tensors((args, kwargs)):
+                if self._storages.pop(id(t.untyped_storage()), None):
+                    self.live -= t.untyped_storage().nbytes()
+            for t in results:
+                self._track(t)
+            return out
         if func._overloadpacket not in _ALLOCATIONS:
             self.bytes += k * sum(nbytes(t) for t in _tensors((args, kwargs)))
             self.bytes += k * sum(nbytes(t) for t in results)
@@ -153,6 +239,30 @@ class Tally(TorchDispatchMode):
     def __exit__(self, *exc):
         _STATE.tally = self._outer
         return super().__exit__(*exc)
+
+
+class Collectives(TorchDispatchMode):
+    """The collectives emitted inside ``with Collectives() as c:``, by
+    kind (``counts``) and bytes (``bytes``, the :class:`Tally`'s rule),
+    and nothing else counted: what a step run on a card emits, to hold
+    against a :class:`Tally`'s trace of it."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.bytes = 0.0
+        self.counts: dict[str, int] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if _subclassed(types):
+            return NotImplemented
+        out = func(*args, **kwargs)
+        coll = None if _propagating() else collective(func, args, kwargs,
+                                                      out)
+        if coll is not None:
+            self.bytes += coll[1]
+            self.counts[coll[0]] = self.counts.get(coll[0], 0) + 1
+        return out
 
 
 def active() -> Optional[Tally]:
@@ -188,10 +298,15 @@ def steps(n: int, *, closed: bool = False) -> Iterator[int]:
     later = torch.is_grad_enabled() and not closed
     yield 0
     flops, nbytes_, raw = tally.flops, tally.bytes, tally.raw_flops
+    cbytes, counts = tally.collective_bytes, dict(tally.collective_counts)
     live, first = tally.live, _next_sequence_nr() if later else 0
     yield 1
     tally.flops += (n - 3) * (tally.flops - flops)
     tally.bytes += (n - 3) * (tally.bytes - nbytes_)
+    tally.collective_bytes += (n - 3) * (tally.collective_bytes - cbytes)
+    for kind, c in list(tally.collective_counts.items()):
+        tally.collective_counts[kind] = c + (n - 3) * (c - counts.get(kind,
+                                                                      0))
     if later:
         held = (n - 3) * max(0, tally.live - live)
         tally.live += held

@@ -1,12 +1,22 @@
-"""Dry-run of every (architecture x input shape) cell on one H100: FLOPs,
-bytes, peak memory and roofline terms of each cell's step, estimated by
-tracing it on the ``meta`` device (:func:`repro_torch.launch.lowering.
-estimate_cell`).
+"""Dry-run of every (architecture x input shape) cell: FLOPs, bytes,
+collective bytes, peak memory and roofline terms of each cell's step a
+device, estimated by tracing it on the ``meta`` device
+(:func:`repro_torch.launch.lowering.estimate_cell`).
+
+Which mesh:
+  * no ``--multi-pod``: one H100 (mesh ``h100x1``), the whole cell on
+    one card, nothing laid out (what ``chip_smoke.py`` phase 14 holds on
+    the card and ``PERF.md`` §5's one-card table reads);
+  * ``--multi-pod off|on|both``: the reference's meanings, the
+    production mesh ``pod16x16`` (data=16, model=16), ``pod2x16x16``
+    (pod=2, data=16, model=16) or both, each cell laid out by the
+    reference's rules and traced as rank 0's program over a fake
+    process group (``lower_cell``).
 
 The estimate places no tensor on any device and launches nothing, so it
 has no ``--device``: it runs anywhere, and its numbers are the card's
 only through the published peaks it divides by.  Cells that do not fit
-the card are estimated all the same (``fits`` says so).
+a device are estimated all the same (``fits`` says so).
 
 Attention is costed on the reference's dry-run's routes: ``chunked`` to
 prefill and ``einsum`` to train, unless ``--attn-impl`` names one for
@@ -19,6 +29,8 @@ Usage:
       --shape prefill_32k --attn-impl einsum
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all \\
       --out build/port_dryrun/dryrun.json
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all \\
+      --multi-pod both --out build/port_dryrun/dryrun_mesh.json
 """
 
 from __future__ import annotations
@@ -30,7 +42,8 @@ import sys
 import time
 
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config
-from repro_torch.launch.lowering import estimate_cell, shape_applicable
+from repro_torch.launch.lowering import (estimate_cell, lower_cell,
+                                         shape_applicable)
 
 
 def _line(rep) -> str:
@@ -48,22 +61,31 @@ def _line(rep) -> str:
     return line
 
 
-def run_cells(archs, shapes, *, attn_impl=None, out_path=None,
-              verbose=True):
+def run_cells(archs, shapes, meshes=(None,), *, attn_impl=None,
+              out_path=None, verbose=True):
+    """Each cell on each of ``meshes``: ``None`` for one card, ``False``
+    for ``pod16x16``, ``True`` for ``pod2x16x16``."""
     reports = []
     for arch in archs:
         cfg = get_config(arch)
         for shape_name in shapes:
             if not shape_applicable(cfg, shape_name):
                 continue
-            rep = estimate_cell(arch, shape_name, attn_impl=attn_impl)
-            reports.append(rep)
-            if verbose:
-                print(_line(rep), flush=True)
-            if out_path:
-                os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
-                with open(out_path, "w") as f:
-                    json.dump([r.to_json() for r in reports], f, indent=1)
+            for multi_pod in meshes:
+                if multi_pod is None:
+                    rep = estimate_cell(arch, shape_name, attn_impl=attn_impl)
+                else:
+                    rep = lower_cell(arch, shape_name, multi_pod=multi_pod,
+                                     attn_impl=attn_impl)
+                reports.append(rep)
+                if verbose:
+                    print(_line(rep), flush=True)
+                if out_path:
+                    os.makedirs(os.path.dirname(out_path) or ".",
+                                exist_ok=True)
+                    with open(out_path, "w") as f:
+                        json.dump([r.to_json() for r in reports], f,
+                                  indent=1)
     return reports
 
 
@@ -81,6 +103,10 @@ def main(argv=None) -> int:
                     default=None,
                     help="attention route of every cell (default: chunked "
                          "to prefill, einsum to train)")
+    ap.add_argument("--multi-pod", choices=["off", "on", "both"],
+                    default=None,
+                    help="the production meshes: off = pod16x16, on = "
+                         "pod2x16x16, both (default: one card, h100x1)")
     ap.add_argument("--out", default=None, help="JSON report path")
     args = ap.parse_args(argv)
     if not (args.all or args.arch or args.shape):
@@ -89,7 +115,9 @@ def main(argv=None) -> int:
     archs = args.arch or ARCH_IDS
     shapes = args.shape or list(SHAPES)
     t0 = time.perf_counter()
-    reports = run_cells(archs, shapes, attn_impl=args.attn_impl,
+    meshes = {None: [None], "off": [False], "on": [True],
+              "both": [False, True]}[args.multi_pod]
+    reports = run_cells(archs, shapes, meshes, attn_impl=args.attn_impl,
                         out_path=args.out)
     bad = [r for r in reports if r.status == "error"]
     print(f"\n{len(reports)} cells: "

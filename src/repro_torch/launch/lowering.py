@@ -1,6 +1,7 @@
-"""Cell estimates: (architecture x input shape) on one H100 -> FLOPs, bytes,
-peak memory and roofline terms (the reference's ``repro.launch.lowering``,
-which lowers a cell on a TPU mesh and costs its HLO).
+"""Cell estimates: (architecture x input shape x mesh) -> FLOPs, bytes,
+collective bytes, peak memory and roofline terms per device (the
+reference's ``repro.launch.lowering``, which lowers a cell on a TPU mesh
+and costs its HLO).
 
 Per cell, :func:`estimate_cell` runs the cell's step (a train step, a
 prefill, or one decode step) through the port's models on the ``meta``
@@ -13,8 +14,24 @@ device, under a :class:`repro_torch.launch.cost.Tally`:
     read once and its new outputs written once);
   * the peak of the bytes alive at once, arguments included
     (``bytes_per_device``), and whether it ``fits`` the card;
+  * the collectives' bytes and counts by kind (``collective_bytes``,
+    ``collective_counts``);
   * the roofline terms at the H100 SXM's published peaks and the
-    dominant one, and ``model_flops`` (6·N·D) with the useful ratio.
+    dominant one, and ``model_flops`` (6·N·D) with the useful ratio over
+    all devices.
+
+On one card (no ``mesh``, mesh name ``h100x1``) nothing is laid out and
+no collective runs.  On a mesh (:func:`lower_cell`, the production
+``pod16x16`` and ``pod2x16x16`` of the reference's dry-run, or any
+:class:`~repro_torch.distributed.sharding.Mesh`) the step runs as rank
+0's program: every argument is a DTensor laid out by the port's spec
+trees under ``rules_for`` and :data:`CELL_RULES_OVERRIDES`, on a
+``DeviceMesh`` over a ``"fake"`` process group
+(:func:`repro_torch.launch.mesh.device_mesh`), so the tally counts one
+device's local ops and the collectives DTensor emits for the models'
+sharding constraints and the ops whose operands are laid out apart.
+Every number is a device's; the collective term divides by
+:data:`NET_BW`.
 
 Attention takes the route the reference's dry-run lowers
 (``_build_lowerable`` in ``repro.launch.lowering``), never a kernel:
@@ -30,6 +47,7 @@ reason, and the sweep goes on.  Nothing is placed on any device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Optional, Union
@@ -38,7 +56,10 @@ import torch
 
 from repro_torch.configs import SHAPES, get_config
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
+from repro_torch.distributed import sharding as sh
 from repro_torch.launch import cost
+from repro_torch.launch.mesh import (device_mesh, make_production_mesh,
+                                     mesh_axis_sizes, mesh_name)
 from repro_torch.models import model as M
 from repro_torch.optim import cosine_schedule, make_optimizer
 from repro_torch.tree import tree_leaves
@@ -49,6 +70,13 @@ from repro_torch.tree import tree_leaves
 PEAK_FLOPS = 989e12
 HBM_BW = 3.35e12
 HBM_BYTES = 80e9
+#: a GPU's network bytes/s in one direction: a DGX H100 node has eight
+#: 400 Gb/s ConnectX-7 ports for its 8 GPUs.  A 256-GPU mesh is 32 such
+#: nodes and a 16-wide axis spans two of them, so every mesh axis crosses
+#: the network (NVLink, 450 GB/s a direction, joins only the 8 GPUs of a
+#: node).  The reference divides by a TPU v5e ICI link's 50 GB/s.
+NET_BW = 8 * 400e9 / 8 / 8
+NVLINK_BW = 450e9
 MESH_NAME = "h100x1"
 #: tokens a microbatch of an auto-sized (``grad_accum=0``) train step
 #: holds on its device, the reference's rule
@@ -70,7 +98,8 @@ CELL_TRAIN_OVERRIDES: dict[str, dict] = {
 
 # Per-cell sharding-rule overrides (the reference's, for a mesh's rules:
 # sequence-parallel activations in training, serve-time FSDP for the
-# >=34B models).  On one card nothing is placed, so no estimate reads them.
+# >=34B models), applied when the caller passes none.  On one card
+# nothing is placed, so the one-card estimate reads none.
 CELL_RULES_OVERRIDES: dict[tuple[str, str], dict] = {
     ("granite-34b", "train_4k"): {"act_seq": "model"},
     ("qwen2-vl-72b", "train_4k"): {"act_seq": "model"},
@@ -114,7 +143,7 @@ class CellReport:
     hlo_flops: float = 0.0
     hlo_bytes: float = 0.0          # per-op operands + results (upper bound)
     hlo_bytes_fused: float = 0.0    # least traffic (memory term)
-    # one card: no collective runs, so these stay 0
+    # the collectives a device emits (0 on one card)
     collective_bytes: float = 0.0
     collective_counts: dict = dataclasses.field(default_factory=dict)
     xla_flops_raw: float = 0.0      # each repeated loop's body counted once
@@ -144,24 +173,43 @@ def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
     return 2.0 * n * shape.global_batch  # decode: one token
 
 
-def auto_grad_accum(shape: ShapeConfig) -> int:
-    """Microbatches of a ``grad_accum=0`` train step on one card: about
-    MICRO_TOKENS tokens each, the reference's rule with the whole batch
-    on one device."""
-    b = shape.global_batch
+def auto_grad_accum(shape: ShapeConfig, mesh: Optional[sh.Mesh] = None,
+                    rules: Optional[dict] = None) -> int:
+    """Microbatches of a ``grad_accum=0`` train step: about MICRO_TOKENS
+    tokens a device each, the reference's rule, with the batch split
+    over the mesh axes its ``"batch"`` rule names (the whole batch on one
+    card)."""
+    ways = 1
+    if mesh is not None:
+        sizes = mesh_axis_sizes(mesh)
+        t = rules.get("batch")
+        for nm in (t if isinstance(t, tuple) else (t,)):
+            ways *= sizes.get(nm, 1) if nm else 1
+    b = max(1, shape.global_batch // ways)
     return max(1, min(b, b * shape.seq_len // MICRO_TOKENS))
 
 
 def _build_step(cfg: ModelConfig, shape: ShapeConfig,
                 train_cfg: TrainConfig, attn_impl: Optional[str] = None):
-    """(step, args): the cell's step and its ``meta`` arguments, its
-    attention by ``attn_impl`` (default: the reference's, ``"einsum"``
-    to train, ``"chunked"`` to prefill)."""
+    """(step, args): the cell's step on one card and its ``meta``
+    arguments, its attention by ``attn_impl`` (default: the reference's,
+    ``"einsum"`` to train, ``"chunked"`` to prefill)."""
+    return build_step(cfg, shape, train_cfg, attn_impl)[:2]
+
+
+def build_step(cfg: ModelConfig, shape: ShapeConfig, train_cfg: TrainConfig,
+               attn_impl: Optional[str] = None,
+               mesh: Optional[sh.Mesh] = None, rules: Optional[dict] = None):
+    """(step, args, specs): the cell's step, its ``meta`` arguments and
+    their logical-axis trees (``sharding.shard_tree`` lays them out on a
+    device mesh); a ``grad_accum=0`` train step's microbatches sized for
+    ``mesh`` under ``rules``."""
     ins = M.input_specs(cfg, shape)
+    bspec = M.batch_specs(cfg, shape)
     if shape.mode == "train":
         if train_cfg.grad_accum == 0:
             train_cfg = dataclasses.replace(
-                train_cfg, grad_accum=auto_grad_accum(shape))
+                train_cfg, grad_accum=auto_grad_accum(shape, mesh, rules))
         opt = make_optimizer(
             train_cfg.optimizer,
             cosine_schedule(train_cfg.learning_rate, train_cfg.warmup_steps,
@@ -173,65 +221,132 @@ def _build_step(cfg: ModelConfig, shape: ShapeConfig,
         state = M.abstract_train_state(cfg, opt)._replace(step=0)
         step = M.make_train_step(cfg, opt, train_cfg,
                                  attn_impl=attn_impl or "einsum")
-        return step, (state, ins["batch"])
+        return (step, (state, ins["batch"]),
+                (M.train_state_specs(cfg, opt), bspec["batch"]))
     params = M.abstract_params(cfg)
+    pspec = M.param_specs(cfg)
     if shape.mode == "prefill":
         return (M.make_prefill_step(cfg, attn_impl=attn_impl or "chunked"),
-                (params, ins["batch"]))
+                (params, ins["batch"]), (pspec, bspec["batch"]))
     # decode: one step at the cache's last slot (its position is a host
     # number on the port)
     cache = dict(ins["cache"], pos=(shape.kv_len or shape.seq_len) - 1)
     decode = M.make_decode_step(cfg)
     args = (params, cache, ins["tokens"])
+    specs = (pspec, bspec["cache"], bspec["tokens"])
     if cfg.mrope:
         args += (ins["positions"],)
-    return decode, args
+        specs += (bspec["positions"],)
+    return decode, args, specs
 
 
 def _storages(tree) -> dict[int, int]:
-    """{storage id: bytes} of the tensors of ``tree``."""
+    """{storage id: bytes} of the tensors of ``tree`` (a DTensor's local
+    shard)."""
     out = {}
     for t in tree_leaves(tree):
         if isinstance(t, torch.Tensor):
-            st = t.untyped_storage()
+            st = sh.local(t).untyped_storage()
             out[id(st)] = st.nbytes()
     return out
+
+
+def _cell_settings(arch: str, cfg: ModelConfig, shape: ShapeConfig,
+                   mesh: Optional[sh.Mesh], train_cfg: Optional[TrainConfig],
+                   rules_override: Optional[dict]
+                   ) -> tuple[Optional[dict], TrainConfig, list[str]]:
+    """(rules, train config, notes) of a cell: on a mesh the rules for it
+    with ``rules_override`` (default :data:`CELL_RULES_OVERRIDES`' entry)
+    applied, the training config ``train_cfg`` (default
+    :data:`CELL_TRAIN_OVERRIDES`' with ``grad_accum=0``), and a note of
+    each override taken, as the reference's ``lower_cell`` notes them."""
+    notes, rules = [], None
+    if mesh is not None:
+        rules = sh.rules_for(cfg, shape, mesh)
+        if rules_override is None:
+            rules_override = CELL_RULES_OVERRIDES.get((arch, shape.name))
+        if rules_override:
+            rules.update(rules_override)
+            notes.append(f"rules overrides: {rules_override}")
+    if train_cfg is None:
+        over = CELL_TRAIN_OVERRIDES.get(arch, {})
+        train_cfg = TrainConfig(grad_accum=0, **over)
+        if over and shape.mode == "train":
+            notes.append(f"train overrides: {over}")
+    return rules, train_cfg, notes
+
+
+@contextlib.contextmanager
+def cell_program(arch: str, shape: Union[str, ShapeConfig], *,
+                 mesh: Optional[sh.Mesh] = None,
+                 cfg: Optional[ModelConfig] = None,
+                 train_cfg: Optional[TrainConfig] = None,
+                 attn_impl: Optional[str] = None,
+                 rules_override: Optional[dict] = None, make=None,
+                 device_type: str = "cuda"):
+    """``with cell_program(...) as (step, args, notes):`` the cell's step
+    and its arguments, the arguments of a mesh's cell laid out as rank 0's
+    shards on a ``DeviceMesh`` over a fake process group (destroyed on
+    exit), with its rules, implicit replication and DTensor active inside
+    the block.  ``make(shape, dtype)`` makes each local shard (default:
+    ``meta``, for a trace; a seeded tensor on the card runs rank 0's
+    program for real) on a mesh of ``device_type`` devices (a ``"cpu"``
+    mesh takes the local shards made on the CPU)."""
+    cfg = cfg or get_config(arch)
+    shape = SHAPES[shape] if isinstance(shape, str) else shape
+    rules, train_cfg, notes = _cell_settings(arch, cfg, shape, mesh,
+                                             train_cfg, rules_override)
+    step, args, specs = build_step(cfg, shape, train_cfg, attn_impl, mesh,
+                                   rules)
+    with contextlib.ExitStack() as stack:
+        if mesh is not None:
+            dm = stack.enter_context(device_mesh(mesh, device_type))
+            stack.enter_context(sh.use_mesh(mesh, rules, dm))
+            stack.enter_context(_implicit_replication())
+            args = sh.shard_tree(args, specs, make)
+        yield step, args, notes
 
 
 def estimate_cell(arch: str, shape: Union[str, ShapeConfig], *,
                   cfg: Optional[ModelConfig] = None,
                   train_cfg: Optional[TrainConfig] = None,
                   attn_impl: Optional[str] = None,
+                  mesh: Optional[sh.Mesh] = None,
+                  rules_override: Optional[dict] = None,
                   notes: str = "") -> CellReport:
     """The cell's report (see the module docstring); ``shape`` a name of
     ``SHAPES`` or a ShapeConfig, ``cfg`` replacing the arch's config (a
-    cut or smoke variant), ``train_cfg`` the cell's training overrides
-    and ``attn_impl`` its attention route (``"einsum"`` or
-    ``"chunked"``; default the reference's for the mode)."""
+    cut or smoke variant), ``train_cfg`` the cell's training overrides,
+    ``attn_impl`` its attention route (``"einsum"`` or ``"chunked"``;
+    default the reference's for the mode), ``mesh`` the mesh it is laid
+    out on (default: one card) and ``rules_override`` the rules it
+    changes there (default :data:`CELL_RULES_OVERRIDES`' entry)."""
     cfg = cfg or get_config(arch)
     shape = SHAPES[shape] if isinstance(shape, str) else shape
-    rep = CellReport(arch=arch, shape=shape.name, mesh=MESH_NAME,
-                     notes=notes, num_devices=1)
+    rep = CellReport(arch=arch, shape=shape.name,
+                     mesh=MESH_NAME if mesh is None else mesh_name(mesh),
+                     notes=notes, num_devices=1 if mesh is None else
+                     mesh.size)
     skip = cell_is_skipped(arch, shape.name)
     if skip:
         rep.status, rep.error = "skipped", skip
         return rep
-    if train_cfg is None:
-        over = CELL_TRAIN_OVERRIDES.get(arch, {})
-        train_cfg = TrainConfig(grad_accum=0, **over)
-        if over and shape.mode == "train":
-            rep.notes = (rep.notes + " " if rep.notes else "") + \
-                f"train overrides: {over}"
     t0 = time.perf_counter()
     try:
-        step, args = _build_step(cfg, shape, train_cfg, attn_impl)
-        ins = _storages(args)
-        grad = torch.enable_grad if shape.mode == "train" else torch.no_grad
-        with grad(), cost.Tally() as tally:
-            tally.hold(args)
-            out = step(*args)
-            del step
-        new = {k: n for k, n in _storages(out).items() if k not in ins}
+        with cell_program(arch, shape, mesh=mesh, cfg=cfg,
+                          train_cfg=train_cfg, attn_impl=attn_impl,
+                          rules_override=rules_override) as (step, args,
+                                                             taken):
+            rep.notes = " ".join(([rep.notes] if rep.notes else []) + taken)
+            ins = _storages(args)
+            grad = (torch.enable_grad if shape.mode == "train"
+                    else torch.no_grad)
+            with grad(), cost.Tally() as tally:
+                tally.hold(args)
+                out = step(*args)
+                del step
+            new = {k: n for k, n in _storages(out).items() if k not in ins}
+            del out, args
         rep.compile_seconds = time.perf_counter() - t0
         rep.argument_bytes = float(sum(ins.values()))
         rep.output_bytes = float(sum(new.values()))
@@ -242,16 +357,41 @@ def estimate_cell(arch: str, shape: Union[str, ShapeConfig], *,
         rep.xla_flops_raw = float(tally.raw_flops)
         rep.hlo_bytes = float(tally.bytes)
         rep.hlo_bytes_fused = rep.argument_bytes + rep.output_bytes
+        rep.collective_bytes = float(tally.collective_bytes)
+        rep.collective_counts = dict(tally.collective_counts)
         rep.compute_s = rep.hlo_flops / PEAK_FLOPS
         rep.memory_s = rep.hlo_bytes_fused / HBM_BW
+        rep.collective_s = rep.collective_bytes / NET_BW
         terms = {"compute": rep.compute_s, "memory": rep.memory_s,
                  "collective": rep.collective_s}
         rep.dominant = max(terms, key=terms.get)
         rep.model_flops_global = model_flops(cfg, shape)
-        rep.useful_ratio = (rep.model_flops_global / rep.hlo_flops
-                            if rep.hlo_flops else 0.0)
+        total = rep.hlo_flops * rep.num_devices
+        rep.useful_ratio = rep.model_flops_global / total if total else 0.0
     except Exception as e:  # noqa: BLE001 - report, don't crash the sweep
         rep.status = "error"
         rep.error = f"{type(e).__name__}: {e}"[:2000]
         rep.compile_seconds = time.perf_counter() - t0
     return rep
+
+
+def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
+               attn_impl: Optional[str] = None,
+               train_cfg: Optional[TrainConfig] = None,
+               rules_override: Optional[dict] = None,
+               mesh: Optional[sh.Mesh] = None,
+               notes: str = "") -> CellReport:
+    """The reference's ``lower_cell``: the cell on the production mesh,
+    ``pod2x16x16`` if ``multi_pod`` else ``pod16x16`` (or on ``mesh``)."""
+    return estimate_cell(
+        arch, shape_name, attn_impl=attn_impl, train_cfg=train_cfg,
+        rules_override=rules_override, notes=notes,
+        mesh=mesh or make_production_mesh(multi_pod=multi_pod))
+
+
+def _implicit_replication():
+    """DTensor's implicit replication: a plain tensor a step makes (an
+    ``arange`` of positions, a mask) meets DTensors as a replicated one,
+    as XLA's partitioner replicates an unsharded constant."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()

@@ -6,9 +6,20 @@ they are descriptions (a :class:`~repro_torch.distributed.sharding.Mesh`
 without devices), which the sharding rules resolve against and which no
 single card holds.  In the multi-pod mesh the ``pod`` axis is the
 federated-learning client axis (:mod:`repro_torch.distributed.fl_mesh`).
+
+:func:`device_mesh` gives one rank's view of such a mesh: a torch
+``DeviceMesh`` of its shape over a process group of torch's ``"fake"``
+backend (world size the mesh's size, this process rank 0), whose
+collectives move no data and return at once.  A step run on DTensors laid
+out on it is the program rank 0 would run, with every collective it would
+emit; the dry-run traces it on ``meta``.
 """
 
 from __future__ import annotations
+
+import contextlib
+import logging
+from typing import Iterator
 
 from repro_torch.distributed.sharding import Mesh
 
@@ -26,3 +37,42 @@ def make_debug_mesh(shape=(2, 2), axes=("data", "model")) -> Mesh:
 
 def mesh_axis_sizes(mesh: Mesh) -> dict[str, int]:
     return dict(zip(mesh.axis_names, mesh.shape))
+
+
+def mesh_name(mesh: Mesh) -> str:
+    """``pod16x16`` / ``pod2x16x16`` for the production meshes (the
+    reference's names), else ``mesh`` and the shape (``mesh2x2``)."""
+    if mesh == make_production_mesh():
+        return "pod16x16"
+    if mesh == make_production_mesh(multi_pod=True):
+        return "pod2x16x16"
+    return "mesh" + "x".join(map(str, mesh.shape))
+
+
+@contextlib.contextmanager
+def device_mesh(mesh: Mesh, device_type: str = "cuda") -> Iterator:
+    """Rank 0's torch ``DeviceMesh`` of ``mesh``'s shape and axis names
+    over a ``"fake"`` process group of ``mesh.size`` ranks, created on
+    entry and destroyed on exit (the process is left with no process
+    group).  ``device_type`` is the mesh's: ``"cuda"``, a mesh of GPUs
+    whether the local shards lie on the card or on ``meta`` (DTensor
+    then emits an all-to-all where a CPU mesh would all-gather and
+    slice); nothing here touches a card."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    # registers the "fake" backend on the torch versions that do not
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialized")
+    dist.init_process_group("fake", store=dist.HashStore(), rank=0,
+                            world_size=mesh.size)
+    # DTensor warns of each two-axis all-reduce it runs as two
+    log = logging.getLogger("torch.distributed.tensor")
+    level = log.level
+    log.setLevel(logging.ERROR)
+    try:
+        yield init_device_mesh(device_type, mesh.shape,
+                               mesh_dim_names=mesh.axis_names)
+    finally:
+        log.setLevel(level)
+        dist.destroy_process_group()

@@ -22,6 +22,8 @@ import torch.utils.checkpoint
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.sharding import constraint, gather_weights
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import padded_vocab
 
@@ -123,15 +125,17 @@ def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor,
     dt = params["enc_norm"].dtype
     B, Te, d = frames.shape
     x = frames.to(dt) + sinusoidal(Te, d, dt, frames.device)[None]
+    x = constraint(x, "batch", "act_seq", None)
     pos = torch.arange(Te, dtype=torch.int32, device=frames.device)
 
     def body(h, p):
+        p = gather_weights(p)
         q, k, v = L.qkv_proj(L.rmsnorm(h, p["attn_norm"]), p["wq"], p["wk"],
                              p["wv"])
         o = L.attention(q, k, v, q_pos=pos, kv_pos=pos, causal=False,
                         impl=attn_impl)
         h = h + L.out_proj(o, p["wo"])
-        return h + L.mlp(L.rmsnorm(h, p["mlp_norm"]), p, "gelu")
+        return L.carry(h + L.mlp(L.rmsnorm(h, p["mlp_norm"]), p, "gelu"))
 
     body = _remat(body, remat_policy)
     for p in L.unstack_layers(params["enc_layers"], 1):
@@ -157,28 +161,31 @@ def _decoder(cfg, params, tokens, enc_out, remat_policy, attn_impl,
     epos = torch.arange(enc_out.shape[1], dtype=torch.int32, device=x.device)
 
     def body(h, p):
+        p = gather_weights(p)
         q, k, v = L.qkv_proj(L.rmsnorm(h, p["attn_norm"]), p["wq"], p["wk"],
                              p["wv"])
         o = L.attention(q, k, v, q_pos=pos, kv_pos=pos, causal=True,
                         impl=attn_impl)
         h = h + L.out_proj(o, p["wo"])
-        cq = torch.einsum("bsd,dnh->bsnh", L.rmsnorm(h, p["cross_norm"]),
+        cq = sh.einsum("bsd,dnh->bsnh", L.rmsnorm(h, p["cross_norm"]),
                           p["cwq"])
         # cross K/V come from the encoder stream
-        ck = torch.einsum("btd,dkh->btkh", enc_out, p["cwk"])
-        cv = torch.einsum("btd,dkh->btkh", enc_out, p["cwv"])
+        ck = sh.einsum("btd,dkh->btkh", enc_out, p["cwk"])
+        cv = sh.einsum("btd,dkh->btkh", enc_out, p["cwv"])
         co = L.attention(cq, ck, cv, q_pos=pos, kv_pos=epos, causal=False,
                          impl=cross_impl)
         h = h + L.out_proj(co, p["cwo"])
-        h = h + L.mlp(L.rmsnorm(h, p["mlp_norm"]), p, "gelu")
+        h = L.carry(h + L.mlp(L.rmsnorm(h, p["mlp_norm"]), p, "gelu"))
         return h, k, v, ck, cv
 
     body = _remat(body, remat_policy)
     outs = []
+    cache_axes = [("batch", "kv_seq", "kv_heads", "head_dim")] * 2 + \
+        [("batch", None, "kv_heads", "head_dim")] * 2
     for p in L.unstack_layers(params["dec_layers"], 1):
         x, *kv = body(x, p)
-        if collect:
-            outs.append(kv)
+        if collect:           # in the cache's layout
+            outs.append([constraint(t, *ax) for t, ax in zip(kv, cache_axes)])
     x = L.rmsnorm(x, params["dec_norm"])
     if collect:
         return x, [torch.stack(t) for t in zip(*outs)]
@@ -260,20 +267,21 @@ def encdec_decode(cfg: ModelConfig, params: dict, cache: dict,
     kv_valid = (kv_pos <= pos)[None].expand(B, T)
     epos = torch.arange(cache["ck"].shape[2], dtype=torch.int32, device=dev)
     for i, p in enumerate(L.unstack_layers(params["dec_layers"], 1)):
+        p = gather_weights(p)
         q, k_new, v_new = L.qkv_proj(L.rmsnorm(x, p["attn_norm"]), p["wq"],
                                      p["wk"], p["wv"])
         k_l, v_l = cache["k"][i], cache["v"][i]
-        k_l[:, pos:pos + S1] = k_new
-        v_l[:, pos:pos + S1] = v_new
+        L.write_cache(k_l, k_new, pos)
+        L.write_cache(v_l, v_new, pos)
         o = L.gqa_attention(q, k_l, v_l, q_pos=q_pos, kv_pos=kv_pos,
                             causal=True, kv_valid=kv_valid)
-        x = x + L.out_proj(o, p["wo"])
-        cq = torch.einsum("bsd,dnh->bsnh", L.rmsnorm(x, p["cross_norm"]),
+        x = L.carry(x + L.out_proj(o, p["wo"]))
+        cq = sh.einsum("bsd,dnh->bsnh", L.rmsnorm(x, p["cross_norm"]),
                           p["cwq"])
         co = L.gqa_attention(cq, cache["ck"][i], cache["cv"][i], q_pos=q_pos,
                              kv_pos=epos, causal=False)
-        x = x + L.out_proj(co, p["cwo"])
-        x = x + L.mlp(L.rmsnorm(x, p["mlp_norm"]), p, "gelu")
+        x = L.carry(x + L.out_proj(co, p["cwo"]))
+        x = L.carry(x + L.mlp(L.rmsnorm(x, p["mlp_norm"]), p, "gelu"))
     x = L.rmsnorm(x, params["dec_norm"])
     logits = L.logits_from_hidden(x, params, False)[:, 0]
     return logits, dict(cache, pos=pos + S1)

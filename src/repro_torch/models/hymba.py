@@ -20,6 +20,8 @@ import torch.utils.checkpoint
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.sharding import constraint, gather_weights
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models.transformer import (default_positions, layer_windows,
@@ -94,20 +96,21 @@ def _layers(params: dict) -> list[dict]:
 
 def _ssm_in(h, p):
     """The SSM head's input stream and gate from the normed block input."""
-    return h @ p["w_in"], h @ p["w_gate_ssm"]
+    return sh.matmul(h, p["w_in"]), sh.matmul(h, p["w_gate_ssm"])
 
 
 def _fuse(x, attn_out, y, z, p, cfg):
     """The block's residual update: the mean of the two normed streams,
     then the MLP."""
-    ssm_out = (y * F.silu(z)) @ p["w_out_ssm"]
+    ssm_out = sh.matmul(y * F.silu(z), p["w_out_ssm"])
     x = x + 0.5 * (L.rmsnorm(attn_out, p["fuse_norm_attn"])
                    + L.rmsnorm(ssm_out, p["fuse_norm_ssm"]))
-    return x + L.mlp(L.rmsnorm(x, p["mlp_norm"]), p, cfg.mlp_type)
+    return L.carry(x + L.mlp(L.rmsnorm(x, p["mlp_norm"]), p, cfg.mlp_type))
 
 
 def _prefill_block(x, p, cfg, cos, sin, pos, window, impl):
     """One block over the whole sequence: (x, k, v, SSM state, conv tail)."""
+    p = gather_weights(p)
     h = L.rmsnorm(x, p["attn_norm"])
     q, k, v = L.qkv_proj(h, p["wq"], p["wk"], p["wv"])
     q = L.apply_rope(q, cos, sin)
@@ -131,7 +134,8 @@ def hymba_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     cos, sin = L.rope_cos_sin(positions, cfg.resolved_head_dim,
                               cfg.rope_theta)
     pos = positions[0]
-    x = L.embed_tokens(params["embed"], tokens)
+    x = constraint(L.embed_tokens(params["embed"], tokens),
+                   "batch", "act_seq", None)
     outs = []
     for p, window in zip(_layers(params), layer_windows(cfg)):
         args = (x, p, cfg, cos, sin, pos, window, attn_impl)
@@ -140,8 +144,10 @@ def hymba_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         else:
             x, *state = torch.utils.checkpoint.checkpoint(
                 _prefill_block, *args, use_reentrant=False)
-        if collect:
-            outs.append(state)
+        if collect:           # in the cache's layout
+            outs.append([constraint(t, *ax) for t, ax in zip(state, (
+                ("batch", "kv_seq", "kv_heads", "head_dim"),) * 2 + (
+                ("batch", "d_inner", None), ("batch", None, "d_inner")))])
     x = L.rmsnorm(x, params["final_norm"])
     if collect:
         return x, [torch.stack(t) for t in zip(*outs)]
@@ -220,12 +226,13 @@ def hymba_decode(cfg: ModelConfig, params: dict, cache: dict,
     ssm, conv = [], []
     for i, (p, window) in enumerate(zip(_layers(params),
                                         layer_windows(cfg))):
+        p = gather_weights(p)
         h = L.rmsnorm(x, p["attn_norm"])
         q, k_new, v_new = L.qkv_proj(h, p["wq"], p["wk"], p["wv"])
         q = L.apply_rope(q, cos, sin)
         k_l, v_l = cache["k"][i], cache["v"][i]
-        k_l[:, pos:pos + S1] = L.apply_rope(k_new, cos, sin)
-        v_l[:, pos:pos + S1] = v_new
+        L.write_cache(k_l, L.apply_rope(k_new, cos, sin), pos)
+        L.write_cache(v_l, v_new, pos)
         o = L.attention(q, k_l, v_l, q_pos=q_pos, kv_pos=kv_pos, causal=True,
                         window=window, kv_valid=kv_valid)
         xin, z = _ssm_in(h, p)

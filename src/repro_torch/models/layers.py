@@ -19,18 +19,26 @@ reference's own prefill route (its default, and its dry-run's):
 time, masked by the positions.  The decode step (``kv_valid`` given)
 and training (``impl="einsum"``, the reference's default for a loss:
 the kernel has no backward) run the plain einsum attention.  The
-reference's sharding constraints resolve through
-:mod:`repro_torch.distributed.sharding`, where on one card
-``constraint`` is the identity, so the model code calls none.
+reference's sharding constraints sit where the reference has them and
+resolve through :mod:`repro_torch.distributed.sharding`: on one card
+``constraint`` is the identity; on a device mesh it redistributes.
+Where the mesh splits the vocabulary, the embedding and the loss read
+each device's own rows / columns of the table and the logits and reduce
+across the vocabulary shards (a gather along a vocab-sharded axis would
+gather the table or the logits; the reference contracts a one-hot
+instead).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.sharding import constraint, splits
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.launch import cost
@@ -127,8 +135,14 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Einsum attention. q: (B,S,H,hd), k/v: (B,T,KV,hd) -> (B,S,H,hd).
 
     ``kv_valid``: optional (B, T) bool marking populated cache slots
-    (decode). Softmax in f32.
+    (decode). Softmax in f32.  On a device mesh:
+    :func:`_attention_on_mesh`.
     """
+    if sh.is_distributed(q):
+        return _attention_on_mesh(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
+                                  causal=causal, window=window,
+                                  kv_valid=kv_valid, impl="einsum",
+                                  chunk=q.shape[1])
     H = q.shape[2]
     k = repeat_kv(k, H)
     v = repeat_kv(v, H)
@@ -210,6 +224,54 @@ def prefill_route(impl: str, q_pos: torch.Tensor) -> str:
     return impl
 
 
+def _decode_combine(q, k, v, kv_valid, kv_pos, *, q_pos, causal, window):
+    """One device's decode attention over its shard of a cache whose
+    sequence the mesh splits (``kv_seq``): q (B,1,H,hd) with every head,
+    k/v (B,T_l,H,hd); the softmax's max and sum and the weighted values
+    reduced across the shards (the online-softmax combine)."""
+    scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * \
+        q.shape[-1] ** -0.5
+    scores = scores + _band_bias(q_pos, kv_pos, causal, window)
+    scores = torch.where(kv_valid[:, None, None, :], scores, NEG_INF)
+    m = sh.all_reduce(scores.amax(dim=-1, keepdim=True), "max", "kv_seq")
+    p = torch.exp(scores - m)
+    den = sh.all_reduce(p.sum(dim=-1), "sum", "kv_seq")          # (B,H,S)
+    out = sh.all_reduce(torch.einsum("bhst,bthd->bshd", p.to(v.dtype).float(),
+                                     v.float()), "sum", "kv_seq")
+    return (out / den.transpose(1, 2)[..., None]).to(v.dtype)
+
+
+def _attention_on_mesh(q, k, v, *, q_pos, kv_pos, causal, window, kv_valid,
+                       impl, chunk):
+    """:func:`attention` on a device mesh: each device attends over its
+    batch rows and heads (keys and values repeated to the query heads
+    first), or, decoding over a cache whose sequence the mesh splits,
+    over its shard of the cache for every head (:func:`_decode_combine`).
+    DTensor would gather the heads where an einsum flattens them into
+    its batch."""
+    H = q.shape[2]
+    k, v = repeat_kv(k, H), repeat_kv(v, H)
+    # positions read from a laid-out batch (M-RoPE's) whole on each device
+    q_pos, kv_pos = (constraint(t, *(None,) * t.dim()).to_local()
+                     if sh.is_distributed(t) else t for t in (q_pos, kv_pos))
+    if kv_valid is not None and splits("kv_seq"):
+        fn = functools.partial(_decode_combine, q_pos=q_pos, causal=causal,
+                               window=window)
+        full, shard = ("batch", None, None, None), ("batch", "kv_seq", None,
+                                                    None)
+        return sh.local_map(fn, (full, shard, shard, ("batch", "kv_seq"),
+                                 ("kv_seq",)), full)(q, k, v, kv_valid,
+                                                     kv_pos)
+    heads = ("batch", None, "heads", None)
+
+    def fn(q, k, v, kv_valid):
+        return attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=causal,
+                         window=window, kv_valid=kv_valid, impl=impl,
+                         chunk=chunk)
+    return sh.local_map(fn, (heads, heads, heads, ("batch", None)), heads)(
+        q, k, v, kv_valid)
+
+
 def attention(q, k, v, *, q_pos, kv_pos, causal=True, window=0,
               kv_valid=None, impl: str = "kernel", chunk: int = 512):
     """Prefill (``kv_valid is None``), ``impl`` ``"kernel"`` or
@@ -220,7 +282,11 @@ def attention(q, k, v, *, q_pos, kv_pos, causal=True, window=0,
     than ``chunk`` queries and no ``kv_valid``, as the reference chunks.
     Decode, ``impl="masked"``, ``"einsum"`` and ``"chunked"`` otherwise:
     einsum attention, masked by the positions (over the populated cache,
-    for decode)."""
+    for decode).  On a device mesh: :func:`_attention_on_mesh`."""
+    if sh.is_distributed(q):
+        return _attention_on_mesh(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
+                                  causal=causal, window=window,
+                                  kv_valid=kv_valid, impl=impl, chunk=chunk)
     if kv_valid is None and impl in ("kernel", "plain"):
         fn = flash_ops if impl == "kernel" else flash_ref
         return fn.flash_attention(q, k, v, causal=causal, window=window)
@@ -233,44 +299,126 @@ def attention(q, k, v, *, q_pos, kv_pos, causal=True, window=0,
                          window=window, kv_valid=kv_valid)
 
 
+def write_cache(buf: torch.Tensor, new: torch.Tensor, pos: int) -> None:
+    """``buf[:, pos:pos + S] = new`` in place: a layer's cache (B,T,...)
+    and the step's (B,S,...) entries.  On a device mesh, ``new`` laid out
+    as the cache and written by the device whose shard of the cache's
+    sequence (``kv_seq``) holds the slots, as XLA's partitioner lowers
+    the reference's ``dynamic_update_slice``."""
+    S = new.shape[1]
+    if not sh.is_distributed(buf):
+        buf[:, pos:pos + S] = new
+        return
+    axes = ("batch", None) + (("kv_heads", "head_dim") if buf.dim() == 4
+                              else (None,) * (buf.dim() - 2))
+    new = constraint(new, *axes).to_local()
+    loc = buf.to_local()
+    start = sh.mesh_coordinate("kv_seq")[0] * loc.shape[1] \
+        if splits("kv_seq") else 0
+    lo, hi = max(pos, start), min(pos + S, start + loc.shape[1])
+    if lo < hi:
+        loc[:, lo - start:hi - start] = new[:, lo - pos:hi - pos]
+
+
+def carry(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream between layers in its layout, (batch, act_seq,
+    None), as the reference's layer scan keeps its carry's: a layer's
+    partial sums are reduced into it, never left for DTensor to place."""
+    return constraint(x, "batch", "act_seq", None)
+
+
 # --------------------------------------------------------------------------
 # Projections / MLP
 # --------------------------------------------------------------------------
+def _kv_heads_layout(w):
+    """A key / value projection (D, KV, hd) laid out over the mesh axes
+    of the query heads where those axes split the KV heads evenly (a
+    slice of the replicated weight): each device projects only the KV
+    heads its query heads read, as XLA's partitioner propagates the
+    heads' split back through the grouped repeat.  Else ``w``."""
+    ways = sh.mesh_coordinate("heads")[1]
+    if ways == 1 or w.shape[1] % ways:
+        return w
+    from torch.distributed.tensor import Shard
+    pl = list(w.placements)
+    for d in sh.mesh_axes("heads"):
+        pl[d] = Shard(1)
+    return w.redistribute(w.device_mesh, pl)
+
+
 def qkv_proj(x, wq, wk, wv):
     """x: (B,S,D) -> q (B,S,H,hd), k/v (B,S,KV,hd)."""
-    q = torch.einsum("bsd,dnh->bsnh", x, wq)
-    k = torch.einsum("bsd,dkh->bskh", x, wk)
-    v = torch.einsum("bsd,dkh->bskh", x, wv)
+    if sh.is_distributed(wk):
+        wk, wv = _kv_heads_layout(wk), _kv_heads_layout(wv)
+    q = sh.einsum("bsd,dnh->bsnh", x, wq)
+    k = sh.einsum("bsd,dkh->bskh", x, wk)
+    v = sh.einsum("bsd,dkh->bskh", x, wv)
     return q, k, v
 
 
 def out_proj(o, wo):
     """o: (B,S,H,hd), wo: (H, hd, D) -> (B,S,D)."""
-    return torch.einsum("bsnh,nhd->bsd", o, wo)
+    return sh.einsum("bsnh,nhd->bsd", o, wo)
 
 
 def mlp(x, params: dict, mlp_type: str):
     if mlp_type == "swiglu":
-        gate = x @ params["w_gate"]
-        up = x @ params["w_up"]
+        gate = sh.matmul(x, params["w_gate"])
+        up = sh.matmul(x, params["w_up"])
         h = F.silu(gate) * up
     else:
-        h = F.gelu(x @ params["w_up"], approximate="tanh")   # jax.nn.gelu
-    return h @ params["w_down"]
+        h = F.gelu(sh.matmul(x, params["w_up"]),
+                   approximate="tanh")                    # jax.nn.gelu
+    h = constraint(h, "batch", None, "d_ff")
+    return sh.matmul(h, params["w_down"])
 
 
 # --------------------------------------------------------------------------
 # Embedding / logits
 # --------------------------------------------------------------------------
 def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of ``embed`` at ``tokens``; where the mesh splits the
+    vocabulary, :func:`_vocab_parallel_embed`, not a gather of the
+    table."""
+    if splits("vocab"):
+        return _vocab_parallel_embed(embed, tokens)
     return embed[tokens]
 
 
+def _vocab_parallel_embed(embed: torch.Tensor,
+                          tokens: torch.Tensor) -> torch.Tensor:
+    """The lookup of a table whose rows the mesh splits: each device
+    reads the tokens that fall in its rows (zeros elsewhere), and the
+    partial sums are all-reduced across the vocabulary shards."""
+    from torch.distributed.tensor import DTensor, Partial
+    table = sh.shard_of(constraint(embed, "vocab", None))   # FSDP gather
+    tok = constraint(tokens, "batch", None).to_local().long()
+    start = sh.mesh_coordinate("vocab")[0] * table.shape[0]
+    ids = tok - start
+    inside = (ids >= 0) & (ids < table.shape[0])
+    out = F.embedding(ids.clamp(0, table.shape[0] - 1), table) * \
+        inside[..., None].to(table.dtype)
+    pl = sh.placements(sh.logical_spec("batch", None, None),
+                       sh.active_mesh())
+    for d in sh.mesh_axes("vocab"):
+        pl[d] = Partial()
+    out = DTensor.from_local(out, sh.active_device_mesh(), pl,
+                             run_check=False)
+    return constraint(out, "batch", None, None)
+
+
 def logits_from_hidden(x, params, tie: bool):
-    """(B,S,D) -> (B,S,Vpad) float32 logits."""
+    """(B,S,D) -> (B,S,Vpad) float32 logits.  On a mesh the hidden states
+    leave any sequence-parallel region first, and the logits keep the
+    vocab-parallel layout (the reference's constraints)."""
+    x = constraint(x, "batch", None, None)
     if tie:
-        return x.float() @ params["embed"].float().T
-    return x.float() @ params["unembed"].float()
+        out = sh.matmul(x.float(),
+                        sh.gather_weights(params["embed"]).float().T)
+    else:
+        out = sh.matmul(x.float(),
+                        sh.gather_weights(params["unembed"]).float())
+    return constraint(out, "batch", None, "vocab")
 
 
 def _gold_logit(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -280,11 +428,40 @@ def _gold_logit(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.gather(logits, -1, lab[..., None])[..., 0]
 
 
+def _vocab_parallel_nll(logits: torch.Tensor,
+                        labels: torch.Tensor) -> torch.Tensor:
+    """One device's part of :func:`cross_entropy` over its batch rows and
+    its columns of the vocabulary: the log-sum-exp's max and sum and the
+    gold logit (read where the label falls in the device's columns) are
+    reduced across the vocabulary shards, the NLL and the token count
+    across the batch shards, so no full-vocabulary row is made."""
+    m = sh.all_reduce(logits.amax(dim=-1, keepdim=True).detach(), "max",
+                      "vocab")
+    lse = (m + torch.log(sh.all_reduce(
+        torch.sum(torch.exp(logits - m), dim=-1, keepdim=True), "sum",
+        "vocab")))[..., 0]
+    ids = torch.clamp(labels, min=0).long() - \
+        sh.mesh_coordinate("vocab")[0] * logits.shape[-1]
+    inside = (ids >= 0) & (ids < logits.shape[-1])
+    gold = torch.gather(logits, -1, ids.clamp(0, logits.shape[-1] - 1)
+                        [..., None])[..., 0]
+    gold = sh.all_reduce(gold * inside.to(gold.dtype), "sum", "vocab")
+    mask = (labels >= 0).float()
+    total = sh.all_reduce(torch.sum((lse - gold) * mask), "sum", "batch")
+    count = sh.all_reduce(torch.sum(mask), "sum", "batch")
+    return total / torch.clamp(count, min=1.0)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
                   ) -> torch.Tensor:
     """Mean token NLL in float32; labels < 0 are masked (the chunked form
-    is ``transformer.decoder_loss``'s)."""
+    is ``transformer.decoder_loss``'s).  Where the mesh splits the
+    vocabulary, on each device's shards (:func:`_vocab_parallel_nll`)."""
     logits = logits.float()
+    if splits("vocab"):
+        rows = ("batch",) + (None,) * (labels.dim() - 1)
+        return sh.local_map(_vocab_parallel_nll, (rows + ("vocab",), rows),
+                            ())(logits, labels)
     lse = torch.logsumexp(logits, dim=-1)
     nll = lse - _gold_logit(logits, labels)
     mask = (labels >= 0).float()

@@ -15,6 +15,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as sh
+
 
 def init_ssm(init, shape_prefix: tuple, d_inner: int, n_state: int,
              conv: int, dtype: torch.dtype, device) -> dict:
@@ -57,7 +59,7 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor,
     K = w.shape[0]
     if state is not None:
         window = torch.cat([state, x], dim=1)          # (B,K,D) for S=1
-        y = torch.einsum("bkd,kd->bd", window[:, -K:], w)[:, None]
+        y = sh.einsum("bkd,kd->bd", window[:, -K:], w)[:, None]
         return y, window[:, 1:]
     pad = F.pad(x, (0, 0, K - 1, 0))
     y = sum(pad[:, i:i + x.shape[1]] * w[i] for i in range(K))
@@ -83,9 +85,9 @@ def selective_scan(x: torch.Tensor, p: dict, *, state=None, conv_state=None):
     decode (with ``conv_state``)."""
     xc, new_conv = causal_conv(x, p["conv_w"], conv_state)
     xc = F.silu(xc)
-    dt = F.softplus(xc @ p["w_dt"] + p["b_dt"])
-    Bm = xc @ p["w_B"]
-    Cm = xc @ p["w_C"]
+    dt = F.softplus(sh.matmul(xc, p["w_dt"]) + p["b_dt"])
+    Bm = sh.matmul(xc, p["w_B"])
+    Cm = sh.matmul(xc, p["w_C"])
     A = -torch.exp(p["A_log"].float())                   # (Di,N)
     a = torch.exp(dt[..., None].float() * A)             # (B,S,Di,N)
     b = (dt[..., None] * Bm[:, :, None, :] * xc[..., None]).float()
@@ -96,7 +98,7 @@ def selective_scan(x: torch.Tensor, p: dict, *, state=None, conv_state=None):
         h = a[:, 0] * state + b[:, 0]                    # (B,Di,N)
         new_state = h
         h = h[:, None]
-    y = torch.einsum("bsdn,bsn->bsd", h.to(Cm.dtype), Cm)
+    y = sh.einsum("bsdn,bsn->bsd", h.to(Cm.dtype), Cm)
     y = y + p["D"] * xc
     return y.to(x.dtype), new_state, new_conv
 

@@ -34,6 +34,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
+from repro_torch.distributed import sharding as sh
 from repro_torch.launch import cost
 from repro_torch.models import encdec as E
 from repro_torch.models import hymba as HY
@@ -117,12 +118,33 @@ def batch_to(batch: dict, device: torch.device) -> dict:
 def value_and_grad(lf: Callable, params: Any, batch: dict
                    ) -> tuple[torch.Tensor, Any]:
     """``(lf(params, batch), d lf / d params)``, the gradient a tree
-    shaped like ``params`` in the parameters' dtypes."""
+    shaped like ``params`` in the parameters' dtypes; on a device mesh
+    each gradient laid out as its parameter (the gradient reduction)."""
     leaves = [leaf.detach().requires_grad_(True)
               for leaf in tree_leaves(params)]
     loss = lf(rebuild(params, iter(leaves)), batch)
-    grads = torch.autograd.grad(loss, leaves)
+    grads = [g if not sh.is_distributed(p) else
+             g.redistribute(p.device_mesh, p.placements)
+             for p, g in zip(leaves, torch.autograd.grad(loss, leaves))]
     return loss.detach(), rebuild(params, iter(grads))
+
+
+def _split_local(val, axis: int, n: int):
+    """A batch laid out on a device mesh cut into ``n`` microbatches
+    along ``axis`` from each device's own rows (microbatch ``i`` is every
+    device's ``i``-th block of rows), so no row moves; the reference
+    reshapes the global batch and lets its partitioner move the rows
+    (an all-to-all).  The gradient sums every row either way."""
+    from torch.distributed.tensor import DTensor, Shard
+    loc = val.to_local()
+    if loc.shape[axis] % n:
+        raise ValueError(f"{loc.shape[axis]} rows a device, which {n} "
+                         f"microbatches do not divide")
+    y = loc.reshape(loc.shape[:axis] + (n, loc.shape[axis] // n)
+                    + loc.shape[axis + 1:])
+    pl = [Shard(p.dim + 1) if p.is_shard() and p.dim >= axis else p
+          for p in val.placements]
+    return DTensor.from_local(y, val.device_mesh, pl, run_check=False)
 
 
 def make_train_step(cfg: ModelConfig, opt: Optimizer,
@@ -138,26 +160,31 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
     lf = loss_fn(cfg, attn_impl=attn_impl, remat_policy=tc.remat_policy,
                  loss_chunk=tc.loss_chunk, moe_impl=tc.moe_impl)
 
-    def _micro(key, val, n, i):
-        """Microbatch ``i`` of ``n``: along the batch axis, which M-RoPE's
-        (3, B, S) positions hold second."""
+    def _split(key, val, n):
+        """``val`` as ``n`` microbatches along a new leading axis, cut
+        along the batch axis, which M-RoPE's (3, B, S) positions hold
+        second."""
         axis = 1 if key == "positions" else 0
         if val.shape[axis] % n:
             raise ValueError(f"batch[{key!r}] holds {val.shape[axis]} "
                              f"rows, which {n} microbatches do not divide")
-        return val.chunk(n, dim=axis)[i]
+        if sh.is_distributed(val):
+            y = _split_local(val, axis, n)
+        else:
+            y = val.reshape(val.shape[:axis] + (n, val.shape[axis] // n)
+                            + val.shape[axis + 1:])
+        return y.movedim(1, 0) if axis else y
 
     def _grads(params, batch):
         if tc.grad_accum <= 1:
             return value_and_grad(lf, params, batch)
         n = tc.grad_accum
         adt = getattr(torch, tc.accum_dtype)
-        gsum = [torch.zeros(p.shape, dtype=adt, device=p.device)
-                for p in tree_leaves(params)]
+        gsum = [torch.zeros_like(p, dtype=adt) for p in tree_leaves(params)]
         lsum = torch.zeros((), dtype=torch.float32)
+        split = {key: _split(key, val, n) for key, val in batch.items()}
         for i in cost.steps(n, closed=True):
-            micro = {key: _micro(key, val, n, i)
-                     for key, val in batch.items()}
+            micro = {key: val[i] for key, val in split.items()}
             loss, g = value_and_grad(lf, params, micro)
             gsum = [a + b.to(adt) for a, b in zip(gsum, tree_leaves(g))]
             lsum = lsum.to(loss.device) + loss

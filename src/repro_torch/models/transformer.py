@@ -25,6 +25,8 @@ are plain ``torch`` matmuls, as the reference leaves them to XLA.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -32,6 +34,8 @@ import torch.utils.checkpoint
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.sharding import constraint, gather_weights
 from repro_torch.launch import cost
 from repro_torch.models import layers as L
 
@@ -148,7 +152,7 @@ def _layer(params: dict, i: int) -> dict:
 def _router(x, router, K):
     """Top-``K`` experts of each token and their renormalised softmax
     weights, from float32 router logits: (weights, indices), (..., K)."""
-    probs = torch.softmax(x.float() @ router.float(), dim=-1)
+    probs = torch.softmax(sh.matmul(x.float(), router.float()), dim=-1)
     top_w, top_i = torch.topk(probs, K, dim=-1)
     return top_w / top_w.sum(dim=-1, keepdim=True), top_i
 
@@ -158,13 +162,19 @@ def _moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
     every token, weighted by its combine weight (0 off the top k), summed
     in the model dtype in expert order."""
     top_w, top_i = _router(x, p["router"], cfg.num_experts_per_tok)
-    combine = torch.zeros(x.shape[:-1] + (cfg.num_experts,), dtype=x.dtype,
-                          device=x.device).scatter_(-1, top_i,
-                                                    top_w.to(x.dtype))
+    if sh.is_distributed(x):      # the reference's one-hot sum
+        experts = torch.arange(cfg.num_experts, device=x.device)
+        combine = ((top_i[..., None] == experts).to(x.dtype)
+                   * top_w.to(x.dtype)[..., None]).sum(dim=-2)
+    else:
+        combine = torch.zeros(x.shape[:-1] + (cfg.num_experts,),
+                              dtype=x.dtype, device=x.device).scatter_(
+            -1, top_i, top_w.to(x.dtype))
     acc = torch.zeros_like(x)
     for e in cost.steps(cfg.num_experts):
-        h = F.silu(x @ p["we_gate"][e]) * (x @ p["we_up"][e])
-        acc = acc + (h * combine[..., e, None]) @ p["we_down"][e]
+        h = F.silu(sh.matmul(x, p["we_gate"][e])) * sh.matmul(x,
+                                                              p["we_up"][e])
+        acc = acc + sh.matmul(h * combine[..., e, None], p["we_down"][e])
     return acc
 
 
@@ -174,20 +184,47 @@ MOE_CAPACITY_FACTOR = 2.0   # expert capacity = cf * TK/E (grouped MoE path)
 def _moe_block_ragged(x: torch.Tensor, p: dict,
                       cfg: ModelConfig) -> torch.Tensor:
     """Top-k MoE by capacity-grouped dispatch (the reference's
-    ``_moe_block_ragged`` off the mesh): the T*K (token, expert) rows
-    sorted by expert with a stable sort (``jnp.argsort``'s), each expert's
-    first ``cap`` rows gathered into a dense (E, cap, d) block, rows past
-    an expert's capacity dropped (GShard), the expert products in float32
-    (``preferred_element_type``), the rows scattered back and combined."""
+    ``_moe_block_ragged``): the T*K (token, expert) rows sorted by expert
+    with a stable sort (``jnp.argsort``'s), each expert's first ``cap``
+    rows gathered into a dense (E, cap, d) block, rows past an expert's
+    capacity dropped (GShard), the expert products in float32
+    (``preferred_element_type``), the rows scattered back and combined.
+    On a device mesh, as the reference's ``shard_map``: each device its
+    own tokens, the router and expert weights split (d over the FSDP
+    axis, F over the ``d_ff`` one), the partial products all-reduced and
+    the outputs' d slices all-gathered (:func:`_ragged_local`)."""
+    if not sh.is_distributed(x):
+        return _ragged_local(x, p["router"], p["we_gate"], p["we_up"],
+                             p["we_down"], cfg)
+    x = constraint(x, "batch", None, None)    # exit SP once per block
+    fn = sh.local_map(functools.partial(_ragged_local, cfg=cfg), (
+        ("batch", None, None), ("w_data", None), (None, "w_data", "d_ff"),
+        (None, "w_data", "d_ff"), (None, "d_ff", "w_data")),
+        ("batch", None, None))
+    return fn(x, p["router"], p["we_gate"], p["we_up"], p["we_down"])
+
+
+def _ragged_local(x, router, we_gate, we_up, we_down, cfg):
+    """The dispatch on one device's tokens (B, S, d) and its weight
+    slices: router (d_l, E), gate / up (E, d_l, F_l), down (E, F_l, d_l).
+    With no device mesh d_l = d and F_l = F and every reduction is the
+    identity."""
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     B, S, d = x.shape
     T = B * S
     xf = x.reshape(T, d)
-    top_w, top_i = _router(xf, p["router"], K)
+    d_loc = router.shape[0]
+    if d_loc != d:            # this device's slice of d (the reference's)
+        i = sh.mesh_coordinate("w_data")[0]
+        xf = xf[:, i * d_loc:(i + 1) * d_loc]
+    logits = sh.all_reduce(xf.float() @ router.float(), "sum", "w_data")
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_i = torch.topk(probs, K, dim=-1)
+    top_w = top_w / top_w.sum(dim=-1, keepdim=True)
     flat_e = top_i.reshape(-1)
     TK = T * K
     order = torch.argsort(flat_e, stable=True)
-    x_sorted = xf[order // K]                                    # (TK, d)
+    x_sorted = xf[order // K]                                  # (TK, d_l)
     # bincount's length reads the data; E bins are known
     group_sizes = torch.zeros(E, dtype=flat_e.dtype,
                               device=x.device).scatter_add_(
@@ -197,22 +234,28 @@ def _moe_block_ragged(x: torch.Tensor, p: dict,
     slot = torch.arange(cap, device=x.device)
     valid = slot[None, :] < group_sizes[:, None]                 # (E, cap)
     rows = torch.where(valid, starts[:, None] + slot[None, :], TK)
-    x_grp = torch.cat([x_sorted, x_sorted.new_zeros((1, d))])[rows]
-    g = torch.bmm(x_grp.float(), p["we_gate"].float())
-    u = torch.bmm(x_grp.float(), p["we_up"].float())
-    h = (F.silu(g) * u).to(x.dtype)                              # (E,cap,F)
-    o = torch.bmm(h.float(), p["we_down"].float())               # (E,cap,d)
-    o_sorted = torch.zeros((TK + 1, d), dtype=o.dtype,
+    x_grp = torch.cat([x_sorted, x_sorted.new_zeros((1, d_loc))])[rows]
+    g = sh.all_reduce(torch.bmm(x_grp.float(), we_gate.float()), "sum",
+                      "w_data")
+    u = sh.all_reduce(torch.bmm(x_grp.float(), we_up.float()), "sum",
+                      "w_data")
+    h = (F.silu(g) * u).to(x.dtype)                            # (E,cap,F_l)
+    o = sh.all_reduce(torch.bmm(h.float(), we_down.float()), "sum",
+                      "d_ff")                                  # (E,cap,d_l)
+    o_sorted = torch.zeros((TK + 1, d_loc), dtype=o.dtype,
                            device=x.device).index_add_(
-        0, rows.reshape(-1), o.reshape(-1, d) * valid.reshape(-1, 1))
+        0, rows.reshape(-1), o.reshape(-1, d_loc) * valid.reshape(-1, 1))
     o_tok = torch.einsum("tkd,tk->td",
-                         o_sorted[:TK][torch.argsort(order)].reshape(T, K, d),
-                         top_w.to(o.dtype))
+                         o_sorted[:TK][torch.argsort(order)].reshape(
+                             T, K, d_loc), top_w.to(o.dtype))
+    o_tok = sh.all_gather(o_tok, 1, "w_data")                  # (T, d)
     return o_tok.reshape(B, S, d).to(x.dtype)
 
 
 #: the MoE block's routes: the scan over all experts, or the dispatch
 MOE_IMPLS = ("scan", "ragged")
+#: the MoE block's weights
+EXPERT = ("router", "we_gate", "we_up", "we_down")
 
 
 def _attn_block(x, p, cos, sin, positions, window, impl):
@@ -284,13 +327,27 @@ def decoder_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     if vision_embeds is not None:
         x = torch.cat([vision_embeds.to(x.dtype),
                        x[:, vision_embeds.shape[1]:]], dim=1)
+    x = constraint(x, "batch", "act_seq", None)
     q_pos = mask_channel(positions)
 
     def body(h, p, window):
-        attn_out, k, v = _attn_block(L.rmsnorm(h, p["attn_norm"]), p, cos,
-                                     sin, q_pos, window, impl)
-        h = h + attn_out
-        return h + _ffn(L.rmsnorm(h, p["mlp_norm"]), p, cfg, moe_impl), k, v
+        # Megatron-SP block boundary (the reference's): the sequence
+        # gathered before the projections, so the heads / d_ff split
+        # applies inside; the outputs scattered back to sequence shards.
+        # Both are no-ops where act_seq is not mapped.
+        # the ragged MoE reads its weights split (the reference's
+        # shard_map), every other weight is gathered (FSDP)
+        p = dict(gather_weights({k: w for k, w in p.items()
+                                 if moe_impl != "ragged" or k not in EXPERT}),
+                 **{k: p[k] for k in EXPERT if moe_impl == "ragged"})
+        attn_in = constraint(L.rmsnorm(h, p["attn_norm"]),
+                             "batch", None, None)
+        attn_out, k, v = _attn_block(attn_in, p, cos, sin, q_pos, window,
+                                     impl)
+        h = h + constraint(attn_out, "batch", "act_seq", None)
+        mlp_in = constraint(L.rmsnorm(h, p["mlp_norm"]), "batch", None, None)
+        return h + constraint(_ffn(mlp_in, p, cfg, moe_impl),
+                              "batch", "act_seq", None), k, v
 
     ks, vs = [], []
     for p, window in zip(L.unstack_layers(params["layers"], 1),
@@ -300,9 +357,12 @@ def decoder_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
         else:
             x, k, v = torch.utils.checkpoint.checkpoint(
                 body, x, p, window, use_reentrant=False)
-        if collect_kv:
-            ks.append(k)
-            vs.append(v)
+        if collect_kv:        # in the cache's layout (the reference's
+            # prefill out_shardings)
+            ks.append(constraint(k, "batch", "kv_seq", "kv_heads",
+                                 "head_dim"))
+            vs.append(constraint(v, "batch", "kv_seq", "kv_heads",
+                                 "head_dim"))
     x = L.rmsnorm(x, params["final_norm"])
     if collect_kv:
         return x, (torch.stack(ks), torch.stack(vs))
@@ -420,18 +480,18 @@ def decoder_decode(cfg: ModelConfig, params: dict, cache: dict,
     kv_pos = torch.arange(T, dtype=torch.int32, device=dev)
     kv_valid = (kv_pos <= pos)[None].expand(B, T)
     for i, window in enumerate(layer_windows(cfg)):
-        p = _layer(params, i)
+        p = gather_weights(_layer(params, i))
         attn_in = L.rmsnorm(x, p["attn_norm"])
         q, k_new, v_new = L.qkv_proj(attn_in, p["wq"], p["wk"], p["wv"])
         q = L.apply_rope(q, cos, sin)
         k_new = L.apply_rope(k_new, cos, sin)
         k_l, v_l = cache["k"][i], cache["v"][i]
-        k_l[:, pos:pos + S1] = k_new
-        v_l[:, pos:pos + S1] = v_new
+        L.write_cache(k_l, k_new, pos)
+        L.write_cache(v_l, v_new, pos)
         o = L.attention(q, k_l, v_l, q_pos=q_pos, kv_pos=kv_pos, causal=True,
                         window=window, kv_valid=kv_valid)
-        x = x + L.out_proj(o, p["wo"])
-        x = x + _ffn(L.rmsnorm(x, p["mlp_norm"]), p, cfg)
+        x = L.carry(x + L.out_proj(o, p["wo"]))
+        x = L.carry(x + _ffn(L.rmsnorm(x, p["mlp_norm"]), p, cfg))
     x = L.rmsnorm(x, params["final_norm"])
     logits = L.logits_from_hidden(x, params, cfg.tie_embeddings)
     return logits[:, 0], dict(cache, pos=pos + S1)

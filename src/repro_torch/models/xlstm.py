@@ -26,6 +26,8 @@ import torch.utils.checkpoint
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.sharding import constraint, gather_weights
 from repro_torch.kernels.mlstm import ops as mlstm_ops
 from repro_torch.kernels.mlstm import ref as mlstm_ref
 from repro_torch.launch import cost
@@ -229,18 +231,18 @@ def mlstm_step(state, q, k, v, i_gate, f_gate):
 def _mlstm_inputs(x, p):
     """Pre-norm projections of an mLSTM block: z, q, k, v, i, f."""
     h = L.rmsnorm(x, p["norm"])
-    up = h @ p["w_up"]
-    z = h @ p["w_z"]
-    q = torch.einsum("bse,ehd->bshd", up, p["w_q"])
-    k = torch.einsum("bse,ehd->bshd", up, p["w_k"])
-    v = torch.einsum("bse,ehd->bshd", up, p["w_v"])
-    gates = torch.einsum("bse,egh->bsgh", up, p["w_if"]) + p["b_if"]
+    up = sh.matmul(h, p["w_up"])
+    z = sh.matmul(h, p["w_z"])
+    q = sh.einsum("bse,ehd->bshd", up, p["w_q"])
+    k = sh.einsum("bse,ehd->bshd", up, p["w_k"])
+    v = sh.einsum("bse,ehd->bshd", up, p["w_v"])
+    gates = sh.einsum("bse,egh->bsgh", up, p["w_if"]) + p["b_if"]
     return z, q, k, v, gates[:, :, 0], gates[:, :, 1]            # (B,S,nh)
 
 
 def _mlstm_out(x, hh, z, p, di):
     out = hh.reshape(hh.shape[0], hh.shape[1], di) * F.silu(z)
-    return x + out @ p["w_down"]
+    return L.carry(x + sh.matmul(out, p["w_down"]))
 
 
 #: prefill routes that run the mLSTM's plain version
@@ -259,6 +261,18 @@ def _mlstm_seq(q, k, v, i_g, f_g, impl: str):
                      f"{('kernel',) + PLAIN_ROUTES}")
 
 
+#: on a device mesh the mLSTM's and sLSTM's recurrences run on each
+#: device's batch rows and heads (DTensor has no rule for their
+#: log-sigmoids and cumulative sums): q/k/v (B,S,nh,dh) and gates
+#: (B,S,nh); the mLSTM state C (B,nh,dh,dh), n (B,nh,dh), m (B,nh) and a
+#: step's (B,nh,dh) / (B,nh) inputs
+HEADS = ("batch", None, "heads", None)
+SEQ_AXES = (HEADS,) * 3 + (("batch", None, "heads"),) * 2
+STATE_AXES = (("batch", "heads", None, None), ("batch", "heads", None),
+              ("batch", "heads"))
+STEP_AXES = (("batch", "heads", None),) * 3 + (("batch", "heads"),) * 2
+
+
 def mlstm_block(x, p, cfg, *, state=None):
     """Pre-norm residual mLSTM block. ``state`` triggers the recurrent path
     (decode, S==1); without it the whole sequence runs through
@@ -266,11 +280,15 @@ def mlstm_block(x, p, cfg, *, state=None):
     d, di, nh, dh = _dims(cfg)
     z, q, k, v, i_g, f_g = _mlstm_inputs(x, p)
     if state is None:
-        hh = mlstm_chunked(q, k, v, i_g, f_g)
+        hh = sh.local_map(mlstm_chunked, SEQ_AXES, HEADS)(q, k, v, i_g, f_g)
         new_state = None
     else:
-        new_state, h1 = mlstm_step(state, q[:, 0], k[:, 0], v[:, 0],
-                                   i_g[:, 0], f_g[:, 0])
+        step = sh.local_map(
+            lambda C, n, m, q, k, v, i, f: mlstm_step((C, n, m), q, k, v, i,
+                                                      f),
+            STATE_AXES + STEP_AXES, (STATE_AXES, STEP_AXES[0]))
+        new_state, h1 = step(*state, q[:, 0], k[:, 0], v[:, 0], i_g[:, 0],
+                             f_g[:, 0])
         hh = h1[:, None]
     return _mlstm_out(x, hh, z, p, di), new_state
 
@@ -326,15 +344,25 @@ def slstm_block(x, p, cfg, *, state=None):
     nh = cfg.num_heads
     dh = d // nh
     h_in = L.rmsnorm(x, p["norm"])
-    gz = torch.einsum("bsd,dghe->bsghe", h_in, p["w_gates"]) + p["b_gates"]
-    carry = (state if state is not None
-             else _slstm_zero_state(B, nh, dh, x.dtype, x.device))
-    hs = []
-    for t in cost.steps(S):
-        carry, h = _slstm_cell(carry, gz[:, t], p["r_gates"])
-        hs.append(h)
-    out = cost.stack_steps(hs, S, dim=1).reshape(B, S, d)
-    return x + out @ p["w_down"], carry
+    gz = sh.einsum("bsd,dghe->bsghe", h_in, p["w_gates"]) + p["b_gates"]
+
+    def scan(gz, r, *state):
+        carry = (tuple(state) if state[0] is not None else
+                 _slstm_zero_state(gz.shape[0], gz.shape[3], dh, x.dtype,
+                                   gz.device))
+        hs = []
+        for t in cost.steps(S):
+            carry, h = _slstm_cell(carry, gz[:, t], r)
+            hs.append(h)
+        return cost.stack_steps(hs, S, dim=1), carry
+
+    cell = ("batch", "heads", None)
+    out, carry = sh.local_map(
+        scan, (("batch", None, None, "heads", None),
+               (None, "heads", None, None)) + (cell,) * 4,
+        (HEADS, (cell,) * 4))(gz, p["r_gates"],
+                              *(state if state is not None else [None] * 4))
+    return L.carry(x + sh.matmul(out.reshape(B, S, d), p["w_down"])), carry
 
 
 # --------------------------------------------------------------------------
@@ -353,14 +381,15 @@ def xlstm_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     sLSTM) in ``torch.utils.checkpoint`` (non-reentrant), as the reference
     wraps its group body in ``jax.checkpoint``; values are the same."""
     G, M = _groups(cfg)
-    x = L.embed_tokens(params["embed"], tokens)
+    x = constraint(L.embed_tokens(params["embed"], tokens),
+                   "batch", "act_seq", None)
     mlayers = L.unstack_layers(params["mlstm"], 2)
     slayers = L.unstack_layers(params["slstm"], 1)
 
     def group_body(h, g):
         for lp in mlayers[g * M:(g + 1) * M]:
-            h, _ = mlstm_block(h, lp, cfg)
-        h, _ = slstm_block(h, slayers[g], cfg)
+            h, _ = mlstm_block(h, gather_weights(lp), cfg)
+        h, _ = slstm_block(h, gather_weights(slayers[g]), cfg)
         return h
 
     for g in range(G):
@@ -376,7 +405,8 @@ def xlstm_loss(cfg: ModelConfig, params: dict, batch: dict, *,
                remat_policy: str = "dots", **_) -> torch.Tensor:
     """Mean next-token NLL, tied-embedding logits in float32."""
     hidden = xlstm_hidden(cfg, params, batch["tokens"], remat_policy)
-    logits = hidden.float() @ params["embed"].float().T
+    logits = sh.matmul(hidden.float(),
+                       sh.gather_weights(params["embed"]).float().T)
     return L.cross_entropy(logits, batch["labels"])
 
 
@@ -426,27 +456,32 @@ def xlstm_prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     reference's prefill takes no route)."""
     d, di, nh, dh = _dims(cfg)
     G, M = _groups(cfg)
-    x = L.embed_tokens(params["embed"], tokens)
+    x = constraint(L.embed_tokens(params["embed"], tokens),
+                   "batch", "act_seq", None)
     states = {k: [] for k in ("m_C", "m_n", "m_m", "s_c", "s_n", "s_m",
                               "s_h")}
     for g in range(G):
         mC, mn, mm = [], [], []
         for m in range(M):
-            lp = _group_params(params, g, m)
+            lp = gather_weights(_group_params(params, g, m))
             z, q, k, v, i_g, f_g = _mlstm_inputs(x, lp)
-            hh = _mlstm_seq(q, k, v, i_g, f_g, impl)
-            C, n, mx = mlstm_final_state(q, k, v, i_g, f_g)
+            hh = sh.local_map(lambda *a: _mlstm_seq(*a, impl), SEQ_AXES,
+                              HEADS)(q, k, v, i_g, f_g)
+            C, n, mx = sh.local_map(mlstm_final_state, SEQ_AXES,
+                                    STATE_AXES)(q, k, v, i_g, f_g)
             x = _mlstm_out(x, hh, z, lp, di)
             mC.append(C)
             mn.append(n)
             mm.append(mx)
-        x, (sc, sn, sm, sh) = slstm_block(x, _group_params(params, g), cfg)
+        x, (sc, sn, sm, s_h) = slstm_block(
+            x, gather_weights(_group_params(params, g)), cfg)
         for key, val in zip(("m_C", "m_n", "m_m"), (mC, mn, mm)):
             states[key].append(torch.stack(val))
-        for key, val in zip(("s_c", "s_n", "s_m", "s_h"), (sc, sn, sm, sh)):
+        for key, val in zip(("s_c", "s_n", "s_m", "s_h"), (sc, sn, sm, s_h)):
             states[key].append(val)
     x = L.rmsnorm(x, params["final_norm"])
-    logits = x[:, -1].float() @ params["embed"].float().T
+    logits = sh.matmul(x[:, -1].float(),
+                       sh.gather_weights(params["embed"]).float().T)
     state = {k: torch.stack(v) for k, v in states.items()}
     state["pos"] = tokens.shape[1]
     return logits, state
@@ -462,22 +497,23 @@ def xlstm_decode(cfg: ModelConfig, params: dict, state: dict,
         mC, mn, mm = [], [], []
         for m in range(M):
             x, (C, n, mx) = mlstm_block(
-                x, _group_params(params, g, m), cfg,
+                x, gather_weights(_group_params(params, g, m)), cfg,
                 state=(state["m_C"][g, m], state["m_n"][g, m],
                        state["m_m"][g, m]))
             mC.append(C)
             mn.append(n)
             mm.append(mx)
-        x, (sc, sn, sm, sh) = slstm_block(
-            x, _group_params(params, g), cfg,
+        x, (sc, sn, sm, s_h) = slstm_block(
+            x, gather_weights(_group_params(params, g)), cfg,
             state=(state["s_c"][g], state["s_n"][g], state["s_m"][g],
                    state["s_h"][g]))
         for key, val in zip(("m_C", "m_n", "m_m"), (mC, mn, mm)):
             new[key].append(torch.stack(val))
-        for key, val in zip(("s_c", "s_n", "s_m", "s_h"), (sc, sn, sm, sh)):
+        for key, val in zip(("s_c", "s_n", "s_m", "s_h"), (sc, sn, sm, s_h)):
             new[key].append(val)
     x = L.rmsnorm(x, params["final_norm"])
-    logits = x.float() @ params["embed"].float().T
+    logits = sh.matmul(x.float(),
+                       sh.gather_weights(params["embed"]).float().T)
     new_state = {k: torch.stack(v) for k, v in new.items()}
     new_state["pos"] = state["pos"] + 1
     return logits[:, 0], new_state

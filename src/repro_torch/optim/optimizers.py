@@ -13,9 +13,12 @@ tree (the reference's), for :mod:`repro_torch.distributed.sharding`.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+from repro_torch.distributed import sharding as sh
 
 from repro_torch.tree import rebuild, tree_leaves, tree_map
 
@@ -129,6 +132,41 @@ def _leaf_states(params, f_tree) -> list:
     return [f_tree]
 
 
+def _mean(x, dim, pdim, keepdim=False):
+    return torch.mean(x) if dim is None else x.mean(dim=dim, keepdim=keepdim)
+
+
+def _on_shards(upd, g, st, p):
+    """A factored update of a laid-out parameter run on its shards (so no
+    broadcast of a row factor against a column factor is laid out
+    whole): the means over split axes are a local sum all-reduced over
+    the mesh axes that split the parameter's axis, over its length."""
+    from torch.distributed.tensor import DTensor
+    mesh_dims = {}
+    for d, pl in enumerate(p.placements):
+        if pl.is_shard():
+            mesh_dims.setdefault(pl.dim, []).append(d)
+
+    def mean(x, dim, pdim, keepdim=False):
+        if dim is None:
+            out, dims, n = x.sum(), sum(mesh_dims.values(), []), p.numel()
+        else:
+            out, dims = x.sum(dim=dim, keepdim=keepdim), mesh_dims.get(pdim,
+                                                                      [])
+            n = p.shape[pdim]
+        for d in dims:
+            out = sh.all_reduce_mesh_dim(out, "sum", d)
+        return out / n
+
+    loc = {k: v.to_local() for k, v in st.items()}
+    new_p, new_st = upd(g.to_local(), loc, p.to_local(), mean)
+    wrap = functools.partial(DTensor.from_local, device_mesh=p.device_mesh,
+                             run_check=False)
+    return (wrap(new_p, placements=p.placements),
+            {k: wrap(v, placements=st[k].placements, shape=st[k].shape,
+                     stride=st[k].stride()) for k, v in new_st.items()})
+
+
 @dataclasses.dataclass(frozen=True)
 class Adafactor(Optimizer):
     """Factored second-moment optimizer (Shazeer & Stern 2018): v is kept
@@ -158,14 +196,18 @@ class Adafactor(Optimizer):
         t = _t(step, gnorm.device)
         beta2 = 1.0 - t ** (-self.decay)
 
-        def upd(g, st, p):
+        def upd(g, st, p, mean=_mean):
+            """One leaf's update; ``mean(x, dim, pdim, keepdim)`` is the
+            mean of ``x`` over its axis ``dim`` (``None``: every axis),
+            the parameter's axis ``pdim``."""
             g32 = g.float()
             g2 = g32 * g32 + self.eps
-            if p.dim() >= 2:
-                vr = beta2 * st["vr"] + (1 - beta2) * g2.mean(dim=-1)
-                vc = beta2 * st["vc"] + (1 - beta2) * g2.mean(dim=-2)
+            n = p.dim()
+            if n >= 2:
+                vr = beta2 * st["vr"] + (1 - beta2) * mean(g2, -1, n - 1)
+                vc = beta2 * st["vc"] + (1 - beta2) * mean(g2, -2, n - 2)
                 denom = (vr[..., None] / torch.clamp(
-                    vr.mean(dim=-1, keepdim=True), min=self.eps)[..., None]) \
+                    mean(vr, -1, n - 2, True), min=self.eps)[..., None]) \
                     * vc[..., None, :]
                 u = g32 * torch.rsqrt(denom + self.eps)
                 new_st = {"vr": vr, "vc": vc}
@@ -174,13 +216,18 @@ class Adafactor(Optimizer):
                 u = g32 * torch.rsqrt(v + self.eps)
                 new_st = {"v": v}
             # update clipping by RMS (Adafactor's stabilizer)
-            rms_u = torch.sqrt(torch.mean(u * u) + 1e-30)
+            rms_u = torch.sqrt(mean(u * u, None, None) + 1e-30)
             u = u / torch.clamp(rms_u / self.clip_threshold, min=1.0)
             if self.weight_decay:
                 u = u + self.weight_decay * p.float()
             return (p.float() - lr * u).to(p.dtype), new_st
 
-        out = [upd(g, st, p) for g, st, p in zip(
+        def leaf(g, st, p):
+            if not sh.is_distributed(p):
+                return upd(g, st, p)
+            return _on_shards(upd, g, st, p)
+
+        out = [leaf(g, st, p) for g, st, p in zip(
             tree_leaves(grads), _leaf_states(params, state["f"]),
             tree_leaves(params))]
         new_params = rebuild(params, iter(o[0] for o in out))

@@ -3,15 +3,20 @@
 
 Reads the dry-run's JSON reports (``build/port_dryrun/dryrun*.json``,
 later files overriding earlier ones cell by cell), derives the roofline
-terms of each (arch x shape) cell, the dominant bottleneck, the
-MODEL_FLOPS / traced-FLOPs usefulness and the MFU bound (useful FLOPs at
-the bottleneck's speed over the peak), and writes
-``build/port_dryrun/roofline.md``.  Every number is an estimate: traced
-FLOPs and bytes over published peaks, not a measurement.
+terms of each (arch x shape x mesh) cell, the dominant bottleneck, the
+MODEL_FLOPS / traced-FLOPs usefulness and the MFU bound (useful FLOPs a
+device at the bottleneck's speed over the peak), and writes
+``build/port_dryrun/roofline.md``: a cell's one-card row (``h100x1``)
+and its production-mesh rows (``pod16x16``, ``pod2x16x16``: GiB and
+seconds a device, the collective term over ``lowering.NET_BW``) side by
+side.  Every number is an estimate: traced FLOPs and bytes over
+published peaks, not a measurement.
 
 Make the inputs with:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all \\
       --out build/port_dryrun/dryrun.json
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all \\
+      --multi-pod both --out build/port_dryrun/dryrun_mesh.json
 then:
   PYTHONPATH=src python -m repro_torch.roofline
 """
@@ -37,6 +42,14 @@ HINTS = {
                           "grouped-query kernel halves the bytes",
     ("memory", "prefill"): "attention score materialization; the flash "
                            "kernel keeps its tiles in shared memory",
+    ("collective", "train"): "per-layer FSDP gathers and TP all-reduces "
+                             "cross the network: fewer, larger "
+                             "microbatches",
+    ("collective", "prefill"): "row-parallel all-reduces of the "
+                               "activations: sequence parallelism halves "
+                               "them",
+    ("collective", "decode"): "a layer's combine and TP all-reduces: more "
+                              "requests a step",
 }
 
 
