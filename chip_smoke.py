@@ -69,11 +69,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
    launches), 16 greedy steps from the recurrent state, holds (a)-(c) with
    the recurrent decode in (b); then ``python -m repro_torch.launch.serve
    --arch xlstm-350m --device cuda``, and ``serve --smoke`` for both
-   models (head widths 16 and 32), as subprocesses must exit 0.
+   models (head widths 16 and 32), three subprocesses at once, must exit
+   0.
 8. xlstm-350m training at full width (0.47 B bf16 parameters, AdamW with
    float32 moments, B=4 x 128 tokens): ``python -m
-   repro_torch.launch.train`` for 3 steps with a checkpoint directory,
-   then again to step 6, which must resume from step 3; then in process
+   repro_torch.launch.train --layers 8`` (8 of its 24 layers) for 2 steps
+   with a checkpoint directory, then again to step 4, which must resume
+   from step 2; then in process (all 24 layers)
    the step's s/step, tokens/s, peak memory, device idle share over two
    profiled steps and model-FLOP rate (6 N tokens, an estimate); then the
    train step on the card against the same step on the CPU at smoke size
@@ -218,7 +220,18 @@ Phases, each printed on its own lines; any failure exits non-zero:
    by kind equal to the trace's, its wall printed beside the estimate's
    compute time; (d) ``python -m repro_torch.launch.dryrun`` on one cell
    and ``python -m repro_torch.roofline`` must exit 0 (their files go to
-   ``build/port_dryrun/``).
+   ``build/port_dryrun/``); (e) the port over two ranks sharing the card
+   over gloo, each started by torchrun: (e1) hymba-1.5b stacked for 2
+   pods as (a) draws them, a pod a rank (``shard_tree`` of its
+   ``stacked_specs``), aggregated by ``make_fl_aggregate`` over the
+   ranks in each mode (each rank's wall, bytes sent and received,
+   launches and calls by shape printed), every leaf of every rank
+   bitwise equal to the one-process aggregation of the same stack, which
+   rank 0 runs afterwards; (e2) ``python -m repro_torch.fleet_sim
+   --train-backend shard --dist-backend gloo`` on phase 11(c)'s arm:
+   rosters, arrivals and ``duration_ns`` equal to that arm's one-process
+   vmap run, the final parameters bitwise equal on both ranks and within
+   VMAP_ATOL of the one-process run (ULP distances printed).
 15. The reference's benchmark harness on the port
    (``repro_torch.bench_run``): (a) all 14 suites in this process, each
    suite's wall, launches and calls by shape; every row present and in
@@ -291,6 +304,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -427,8 +441,12 @@ C1_MLSTM = [  # (B, S, nh, dh, f_shift, dtype)
 ]
 # Phase 8: xlstm-350m training at full width, in two invocations of the
 # training entry point (the second resumes from the first's checkpoint), then
-# in process: TRAIN_TIMED steps timed after one warm-up, two profiled.
-TRAIN = {"arch": "xlstm-350m", "batch": 4, "seq": 128, "steps": (3, 6)}
+# in process: TRAIN_TIMED steps timed after one warm-up, two profiled.  The
+# entry point runs cut to ``cli_layers`` of the 24 layers (its 7 mLSTM : 1
+# sLSTM pattern once; the width is not cut): its two runs are mostly the
+# training state's checkpoint, written and read with zlib
+TRAIN = {"arch": "xlstm-350m", "batch": 4, "seq": 128, "steps": (2, 4),
+         "cli_layers": 8}
 TRAIN_TIMED = 3
 # The train step on the card against the same step on the CPU (f32, smoke
 # size, B=4 x 64 tokens, AdamW and SGD at lr 1e-3): the loss and the grad
@@ -454,7 +472,7 @@ TRAIN_HOLD = {"xlstm-350m": {"loss": (1e-4, 1e-3), "grad_norm": (1e-3, 2e-2),
 # tests/test_torch_fl_lm.py's: the NLL after two rounds of two local steps,
 # and the relative L2 distance between two runs' moves of the global model
 # after one round of one local step (a longer run is chaotic, see there).
-LMFL_ROUNDS = 3
+LMFL_ROUNDS = 2
 LMFL_TINY = ["--scale", "tiny", "--rounds", "2", "--clients", "2",
              "--local-steps", "2"]
 LMFL_ONE_STEP = ["--scale", "tiny", "--rounds", "1", "--clients", "2",
@@ -2496,14 +2514,17 @@ def _run_module(tag: str, args: list[str], timeout: int = 300) -> list[str]:
 def run_serve_cli() -> None:
     """``python -m repro_torch.launch.serve`` at full width on the card,
     and at the smoke widths of both served models (head widths 16 and 32,
-    which the kernels run zero-padded to 64)."""
-    _run_module("serve", ["repro_torch.launch.serve", "--arch",
-                          "xlstm-350m", "--device", "cuda", "--prompt-len",
-                          "8", "--gen", "4"])
+    which the kernels run zero-padded to 64), the three subprocesses at
+    once; each must exit 0."""
+    procs = {"serve": _start_module(
+        ["repro_torch.launch.serve", "--arch", "xlstm-350m", "--device",
+         "cuda", "--prompt-len", "8", "--gen", "4"])}
     for arch in LM_PATHS:
-        _run_module(f"serve --smoke {arch}",
-                    ["repro_torch.launch.serve", "--arch", arch, "--smoke",
-                     "--device", "cuda"])
+        procs[f"serve --smoke {arch}"] = _start_module(
+            ["repro_torch.launch.serve", "--arch", arch, "--smoke",
+             "--device", "cuda"])
+    for tag, (proc, t0) in procs.items():
+        _finish_module(tag, proc, t0)
 
 
 # --------------------------------------------------------------------------
@@ -2826,16 +2847,18 @@ def run_family_serve_cli() -> None:
 # Phase 8: LM training
 # --------------------------------------------------------------------------
 def run_train_cli() -> list[float]:
-    """The training entry point at full width, twice over one checkpoint
-    directory: the second invocation must resume from the first's last
-    step.  Returns the losses both printed."""
+    """The training entry point at full width cut to TRAIN["cli_layers"]
+    layers, twice over one checkpoint directory: the second invocation
+    must resume from the first's last step.  Returns the losses both
+    printed."""
     import math
     import shutil
     import tempfile
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    base = ["repro_torch.launch.train", "--arch", TRAIN["arch"], "--batch",
-            str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]), "--ckpt-dir",
-            ckpt, "--log-every", "1", "--device", "cuda"]
+    base = ["repro_torch.launch.train", "--arch", TRAIN["arch"], "--layers",
+            str(TRAIN["cli_layers"]), "--batch", str(TRAIN["batch"]),
+            "--seq", str(TRAIN["seq"]), "--ckpt-dir", ckpt, "--log-every",
+            "1", "--device", "cuda"]
     first, last = TRAIN["steps"]
     try:
         out = _run_module("train", base + ["--steps", str(first)], 900)
@@ -3286,13 +3309,15 @@ def _check_pin(label: str, view: dict, pin: dict) -> None:
         raise AssertionError(f"{label}: {view} != pinned {want}")
 
 
-def run_fleet_layer() -> dict:
+def run_fleet_layer() -> tuple[dict, dict]:
     """Phase 11: (a) the reference example's consensus arms bitwise against
     their pins, (b) the MLP's adaptive hier arm against its pins through
     the five FL kernels, (c) the vmap backend against the python one on
     the MLP's star arm, (d) the vmap compute matrix and the learning
     curve, (e) the topology and async gates; (f) each arm's round wall,
-    idle share and launches (printed with it)."""
+    idle share and launches (printed with it).  Returns the phase's record
+    and what (c)'s vmap arm left (its parameters and history, which phase
+    14(e2) holds the shard backend over ranks against)."""
     import hashlib
 
     import numpy as np
@@ -3440,7 +3465,7 @@ def run_fleet_layer() -> dict:
     out["gates_s"] = time.perf_counter() - t0
     if not (np.isfinite(a).all() and np.isfinite(v).all()):
         raise AssertionError("non-finite global parameters")
-    return out
+    return out, runs["vmap"][1]
 
 
 # --------------------------------------------------------------------------
@@ -4003,6 +4028,23 @@ def _parent_quantize(parent):
     return quantize
 
 
+def _pod_stack(cfg, pods: int, dev):
+    """POD_ARCH's seeded parameters stacked for ``pods`` pods, each with
+    its own seeded perturbation, drawn as phase 14(a) draws them."""
+    import torch
+    from repro_torch.distributed import fl_mesh
+    from repro_torch.models import model as M
+    from repro_torch.tree import named_leaves
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stacked = fl_mesh.stack_for_pods(M.init(cfg, gen, dev), pods)
+    for _, x in named_leaves(stacked):
+        for pod in x:
+            pod.add_(torch.randn(pod.shape, generator=gen, device=dev,
+                                 dtype=torch.float32).mul_(POD_NOISE)
+                     .to(pod.dtype))
+    return stacked
+
+
 def run_pod_aggregation(dev: str = "cuda", cfg=None, parent=None) -> dict:
     """(a) POD_ARCH's seeded parameters stacked for POD_COUNT pods, each
     with its own seeded perturbation, aggregated by
@@ -4019,20 +4061,13 @@ def run_pod_aggregation(dev: str = "cuda", cfg=None, parent=None) -> dict:
     from repro_torch.distributed import fl_mesh
     from repro_torch.kernels.fedavg import ref as fedavg_ref
     from repro_torch.kernels.quantize import ref as quant_ref
-    from repro_torch.models import model as M
     from repro_torch.tree import named_leaves
 
     dev = torch.device(dev)
     cfg = cfg or get_config(POD_ARCH)
     t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(0)
-    stacked = fl_mesh.stack_for_pods(M.init(cfg, gen, dev), POD_COUNT)
+    stacked = _pod_stack(cfg, POD_COUNT, dev)
     leaves = dict(named_leaves(stacked))
-    for x in leaves.values():
-        for pod in x:
-            pod.add_(torch.randn(pod.shape, generator=gen, device=dev,
-                                 dtype=torch.float32).mul_(POD_NOISE)
-                     .to(pod.dtype))
     torch.cuda.synchronize()
     per_pod = sum(x[0].numel() for x in leaves.values())
     rows = sum(x[0].numel() // x.shape[-1] for x in leaves.values())
@@ -4442,11 +4477,209 @@ def run_mesh_rank() -> dict:
             "trace_s": rep.compile_seconds, "launches": launches}
 
 
-def run_mesh_tooling(lm: dict, train_rec: dict, parent=None) -> dict:
+# (e) the port over ranks: RANKS processes sharing the card over gloo
+# (NCCL will not put two ranks on one device), each started by torchrun.
+# (e1) POD_ARCH stacked for RANKS pods, one a rank; (e2) fleet_sim's
+# shard train backend on phase 11(c)'s arm
+RANKS = 2
+RANK_TIMEOUT_S = 300
+RANKS_OUT = os.path.join("build", "ranks")
+
+
+def _torchrun(args: list[str]):
+    """``torchrun --standalone --nproc-per-node RANKS <args>`` from the
+    checkout in a session of its own (so its ranks can be stopped with
+    it): (process, start)."""
+    return (subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(RANKS), *args], cwd=HERE,
+        env=_module_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True), time.perf_counter())
+
+
+def _bits(t):
+    """``t``'s bits as integers of its width (a bitwise comparison)."""
+    import torch
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def pod_rank(out_dir: str) -> None:
+    """One rank of (e1), run under torchrun (``chip_smoke.py --pod-rank
+    DIR``): joins the gloo group on the card, draws the whole stack, lays
+    it out with its pod axis over the ranks (``shard_tree`` of
+    ``stacked_specs``, each rank its pod's copy) and aggregates it by
+    ``make_fl_aggregate`` in each mode, a path of its own (launch counts
+    zeroed just before and read just after, the three FL kernels' calls
+    counted by shape, the bytes sent and received).  Rank 0 then runs the
+    one-process aggregation of the same stack, and every rank's shard of
+    every leaf is gathered to it and held bitwise against that.  Writes
+    ``DIR/e1.<rank>.json``."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import fl_mesh, ranks
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.models import model as M
+    from repro_torch.tree import named_leaves
+
+    dev = ranks.join("gloo", device_type="cuda")
+    rank, world = ranks.rank(), ranks.world_size()
+    cfg = get_config(POD_ARCH)
+    stacked = _pod_stack(cfg, world, dev)
+    mesh = sh.Mesh(("pod",), (world,))
+    rec = {"rank": rank, "device": str(dev), "modes": {}}
+    try:
+        with device_mesh(mesh, "cuda", "gloo") as dm, \
+                sh.use_mesh(mesh, dict(sh.TRAIN_RULES, fl_pod="pod"), dm):
+            laid = sh.shard_tree(stacked, fl_mesh.stacked_specs(
+                M.param_specs(cfg)))
+            if rank:
+                del stacked
+            results = {}
+            for mode in fl_mesh.MODES:
+                traffic = ranks.Traffic()
+                agg = fl_mesh.make_fl_aggregate(mesh, mode=mode,
+                                                traffic=traffic)
+                counters, undo = _calls_by_shape(FL_WRAPPERS[:3])
+                torch.cuda.synchronize()
+                torch.distributed.barrier()
+                try:
+                    kernels.reset_launch_counts()
+                    t0 = time.perf_counter()
+                    results[mode] = agg(laid)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    launches = {k: v for k, v in
+                                kernels.launch_counts.items() if v}
+                finally:
+                    undo()
+                rec["modes"][mode] = {
+                    "wall_s": wall, "launches": launches,
+                    "calls_by_shape": {name: dict(c.most_common())
+                                       for name, c in counters.items() if c},
+                    "sent": traffic.sent, "received": traffic.received,
+                    "collectives": dict(traffic.calls)}
+            held = {}
+            for mode in fl_mesh.MODES:
+                ref = (dict(named_leaves(fl_mesh.make_fl_aggregate(
+                    mesh, mode=mode)(stacked))) if rank == 0 else None)
+                held[mode] = 0
+                for name, x in named_leaves(results[mode]):
+                    every = _bits(ranks.all_gather(x.to_local()))
+                    if ref is not None:
+                        held[mode] += int((every != _bits(ref[name])).any())
+                del ref
+            rec["leaves_differing"] = held if rank == 0 else None
+    finally:
+        ranks.leave()
+    with open(os.path.join(out_dir, f"e1.{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def run_ranks(vmap_left: dict) -> dict:
+    """(e) The port over RANKS ranks sharing the card over gloo: (e1) the
+    pod aggregation, RANKS pods of POD_ARCH a rank each, both modes,
+    every rank's leaves bitwise the one-process aggregation's; (e2)
+    ``repro_torch.fleet_sim --train-backend shard --dist-backend gloo``
+    on phase 11(c)'s arm (the MLP, star, sync, mudp, 48 clients, 3
+    rounds): rosters, arrivals and ``duration_ns`` equal to the
+    one-process vmap run's (``vmap_left``), the final parameters bitwise
+    equal across the ranks (``fleet_sim`` holds that) and within
+    VMAP_ATOL of the one-process run's.  Both run at once."""
+    import numpy as np
+    from repro_torch import fleet_sim
+    out_dir = os.path.join(HERE, RANKS_OUT)
+    os.makedirs(out_dir, exist_ok=True)
+    for name in os.listdir(out_dir):
+        os.remove(os.path.join(out_dir, name))
+    t_part = time.perf_counter()
+    e1 = _torchrun([os.path.join(HERE, "chip_smoke.py"), "--pod-rank",
+                    out_dir])
+    e2_out = os.path.join(out_dir, "e2.json")
+    e2 = _torchrun(["-m", "repro_torch.fleet_sim", "--device", "cuda",
+                    "--model",
+                    "mlp", "--topology", "star", "--mode", "sync",
+                    "--control", "static", "--transport", "mudp",
+                    "--train-backend", "shard", "--dist-backend", "gloo",
+                    "--clients", str(fleet_sim.N_CLIENTS), "--rounds",
+                    str(fleet_sim.ROUNDS), "--out", e2_out])
+    try:
+        lines = _finish_module("(e2) fleet_sim over 2 ranks", *e2,
+                               timeout=RANK_TIMEOUT_S)
+        _finish_module("(e1) pod aggregation over 2 ranks", *e1,
+                       timeout=RANK_TIMEOUT_S)
+    finally:
+        for proc, _ in (e1, e2):        # torchrun and any rank it left
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.communicate()
+    out = {"ranks": RANKS, "modes": {}}
+    e1_recs = []
+    for r in range(RANKS):
+        with open(os.path.join(out_dir, f"e1.{r}.json")) as f:
+            e1_recs.append(json.load(f))
+    for mode in ("exact", "int8"):
+        per = [rec["modes"][mode] for rec in e1_recs]
+        for rec in e1_recs:
+            m = rec["modes"][mode]
+            say(f"  (e1) {mode} rank {rec['rank']} ({rec['device']}): "
+                f"{m['wall_s']:.6f} s wall (ending in a synchronize); sent "
+                f"{m['sent']} B, received {m['received']} B "
+                f"({json.dumps(m['collectives'])}); launches "
+                f"{json.dumps(m['launches'])}; calls by shape "
+                f"{json.dumps(m['calls_by_shape'])}")
+        want = ({"fedavg"} if mode == "exact"
+                else {"fedavg", "quantize", "dequantize"})
+        for m in per:
+            if set(m["launches"]) != want:
+                raise AssertionError(f"(e1) {mode}: launches "
+                                     f"{m['launches']}, want {sorted(want)}")
+        out["modes"][mode] = per
+    differ = e1_recs[0]["leaves_differing"]
+    say(f"  (e1) every leaf of every rank bitwise equal to the one-process "
+        f"aggregation of the same {RANKS}-pod stack: "
+        f"{not any(differ.values())} (leaves differing by mode "
+        f"{json.dumps(differ)})")
+    if any(differ.values()):
+        raise AssertionError(f"(e1) leaves differ: {differ}")
+    with open(e2_out) as f:
+        arm = json.load(f)["arms"][0]
+    hist = [{"roster": list(r.roster), "arrived": list(r.arrived),
+             "duration_ns": r.duration_ns} for r in vmap_left["history"]]
+    if arm["history"] != hist:
+        raise AssertionError("(e2) rosters, arrivals or duration_ns differ "
+                             "from the one-process vmap run's")
+    got = np.frombuffer(bytes.fromhex(arm["params_f32"]), np.float32)
+    want_p = vmap_left["params"]
+    diff = np.abs(got - want_p)
+    ulp = diff / np.spacing(np.maximum(np.abs(got), np.abs(want_p)))
+    say(f"  (e2) rosters, arrivals and duration_ns identical to phase "
+        f"11(c)'s one-process vmap run over {len(hist)} rounds; batch sizes "
+        f"{arm['batch_sizes']} (one process: {vmap_left['batch_sizes']}); "
+        f"final parameters bitwise equal on both ranks (the entry point's "
+        f"line above); against the one-process run max |diff| "
+        f"{diff.max():.3e} (hold {VMAP_ATOL}), elementwise max "
+        f"{ulp.max():.1f} ULP (median {float(np.median(ulp)):.1f})")
+    if not diff.max() <= VMAP_ATOL:
+        raise AssertionError(f"(e2) max diff {diff.max()} > {VMAP_ATOL}")
+    out["fleet"] = {"max_abs": float(diff.max()), "max_ulp": float(ulp.max()),
+                    "batch_sizes": arm["batch_sizes"],
+                    "rank0_lines": lines}
+    out["part_s"] = time.perf_counter() - t_part
+    say(f"  (e) the ranks part: {out['part_s']:.3f} s")
+    return out
+
+
+def run_mesh_tooling(lm: dict, train_rec: dict, vmap_left: dict,
+                     parent=None) -> dict:
     """Phase 14: (a) the pod aggregation (under ``--parent`` also with the
     replaced quantize), (b) the dry-run against the card, (c) the
     multi-pod dry-run against rank 0's program on the card, (d) the
-    dry-run and roofline entry points as subprocesses."""
+    dry-run and roofline entry points as subprocesses, (e) the pod
+    aggregation and the shard train backend over two ranks."""
     t_phase = time.perf_counter()
     say(f"  (a) pod aggregation: {POD_ARCH} x {POD_COUNT} pods, exact and "
         f"int8")
@@ -4472,8 +4705,13 @@ def run_mesh_tooling(lm: dict, train_rec: dict, parent=None) -> dict:
                            os.path.join(DRYRUN_OUT, "dryrun_phase14.json")],
                 timeout=120)
     _run_module("roofline", ["repro_torch.roofline"], timeout=60)
+    say(f"  (e) the port over {RANKS} ranks sharing the card over gloo: the "
+        f"pod aggregation ({POD_ARCH} x {RANKS} pods, a pod a rank) and "
+        f"fleet_sim's shard train backend")
+    over_ranks = run_ranks(vmap_left)
     return {"pods": pods, "dryrun": cells, "chunked_prefill": chunked,
-            "mesh_rank": rank, "phase_s": time.perf_counter() - t_phase}
+            "mesh_rank": rank, "ranks": over_ranks,
+            "phase_s": time.perf_counter() - t_phase}
 
 
 #: Every kernel's wrapper, by (family, wrapper name), for phase 15's calls
@@ -4835,11 +5073,17 @@ def main(argv: list[str] | None = None) -> int:
                          "gather redesigns: phases 2 and "
                          "14(a) also time its kernels beside these, in "
                          "turns")
+    ap.add_argument("--pod-rank", metavar="DIR",
+                    help="run one rank of phase 14(e1) (under torchrun) and "
+                         "write its record to DIR")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    if args.pod_rank:
+        pod_rank(args.pod_rank)
+        return 0
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4904,7 +5148,8 @@ def main(argv: list[str] | None = None) -> int:
         say(f"  phase {phase}: {time.perf_counter() - t0:.3f} s")
 
     say(f"[8] {TRAIN['arch']} training at full width: the training entry point "
-        f"twice (resume), then {TRAIN_TIMED} timed and 2 profiled steps; "
+        f"twice (resume, {TRAIN['cli_layers']} layers), then {TRAIN_TIMED} "
+        f"timed and 2 profiled steps; "
         f"the step on the card against the CPU at smoke size")
     t0 = time.perf_counter()
     losses = run_train_cli()
@@ -4930,7 +5175,7 @@ def main(argv: list[str] | None = None) -> int:
     say("[11] the rest of the fleet layer: hier, gossip, async and the vmap "
         "train backend, 48 clients")
     t0 = time.perf_counter()
-    fleet_layer = run_fleet_layer()
+    fleet_layer, vmap_left = run_fleet_layer()
     fleet_layer["phase_s"] = time.perf_counter() - t0
     say(f"  phase 11: {fleet_layer['phase_s']:.3f} s")
 
@@ -4952,8 +5197,9 @@ def main(argv: list[str] | None = None) -> int:
         f"6-8 and a {CHUNKED_SEQ}-token chunked prefill, the multi-pod "
         f"dry-run against rank 0's program ({MESH_RANK_ARCH} "
         f"{MESH_RANK_SHAPE} on pod16x16, {MESH_RANK_LAYERS} layers), the "
-        f"dry-run and roofline entry points")
-    mesh = run_mesh_tooling(lm, train_rec, parent)
+        f"dry-run and roofline entry points, the pod aggregation and the "
+        f"shard train backend over {RANKS} ranks")
+    mesh = run_mesh_tooling(lm, train_rec, vmap_left, parent)
     say(f"  phase 14: {mesh['phase_s']:.3f} s")
 
     say("[15] the reference's benchmark harness on the port: "
@@ -5036,7 +5282,10 @@ def main(argv: list[str] | None = None) -> int:
             calls_by_shape_phase14={
                 mode: rec["calls_by_shape"][name]
                 for mode, rec in mesh["pods"]["modes"].items()
-                if name in rec["calls_by_shape"]})
+                if name in rec["calls_by_shape"]},
+            launches_phase14e={
+                mode: [r["launches"].get(name, 0) for r in per]
+                for mode, per in mesh["ranks"]["modes"].items()})
     for rec in out:
         rec["launches_phase15"] = {
             suite: r["launches"].get(rec["name"], 0)

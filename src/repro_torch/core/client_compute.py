@@ -270,24 +270,63 @@ class VmapBackend(TrainBackend):
                 _aux_to_rows(aux, k))
 
 
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
 class ShardBackend(VmapBackend):
     """The reference's ``shard_map`` over the client mesh
     (:func:`repro_torch.distributed.fl_mesh.client_mesh`).  On one device
-    it *is* the vmap backend, as the reference's is.  Spreading a batch
-    over several cards is not ported (ROADMAP.md §A), so with more than
-    one visible card it raises instead of running on one."""
+    it *is* the vmap backend, as the reference's is.  Over the d ranks of
+    a group (:mod:`repro_torch.distributed.ranks`, one process a rank)
+    the batch is padded by the reference's rule, to ``max(d,
+    next_pow2(K))`` rounded up to a multiple of d by repeating the last
+    row, client index and round index; rank r trains its contiguous slab
+    of the padded rows through the vmap path, and the updated rows and
+    their metrics are all-gathered, so every rank returns the same first
+    K.  A single process that sees several cards and joined no group
+    raises instead of running on one."""
 
     name = "shard"
 
     def train(self, model, stack, client_idx, round_idx):
+        from repro_torch.distributed import ranks
         from repro_torch.distributed.fl_mesh import client_mesh
-        mesh = client_mesh()
-        if mesh.size > 1:
+        d = client_mesh().size
+        if d <= 1:
+            return super().train(model, stack, client_idx, round_idx)
+        if not ranks.active():
             raise NotImplementedError(
-                f"train backend 'shard' over {mesh.size} cards: spreading "
-                f"a batch over several cards is not ported (ROADMAP.md §A); "
-                f"use 'vmap', or make one card visible")
-        return super().train(model, stack, client_idx, round_idx)
+                f"train backend 'shard' over {d} cards in one process: "
+                f"spreading a batch over several cards takes one rank a "
+                f"card (torchrun --nproc-per-node {d} -m "
+                f"repro_torch.fleet_sim --train-backend shard "
+                f"--dist-backend nccl); use 'vmap', or make one card "
+                f"visible")
+        k = stack.shape[0]
+        kp = -(-max(d, _next_pow2(k)) // d) * d
+        if kp != k:
+            pad = kp - k
+            stack = np.concatenate([stack, np.repeat(stack[-1:], pad, 0)])
+            client_idx = np.concatenate(
+                [client_idx, np.repeat(client_idx[-1:], pad)])
+            round_idx = np.concatenate(
+                [round_idx, np.repeat(round_idx[-1:], pad)])
+        per = kp // d
+        slab = slice(ranks.rank() * per, (ranks.rank() + 1) * per)
+        new, aux = model.train_batch(
+            np.ascontiguousarray(stack[slab], np.float32),
+            np.asarray(client_idx[slab], np.int64),
+            np.asarray(round_idx[slab], np.int64))
+        keys = sorted(aux)
+        rows = torch.cat([new.to(torch.float32)] + [
+            torch.as_tensor(aux[key]).to(new.device, torch.float32)
+            .reshape(per, 1) for key in keys], dim=1)
+        rows = ranks.all_gather(rows).to("cpu").numpy()[:k]
+        n = stack.shape[1]
+        return (np.ascontiguousarray(rows[:, :n]),
+                _aux_to_rows({key: rows[:, n + j]
+                              for j, key in enumerate(keys)}, k))
 
 
 _TRAIN_BACKENDS: dict[str, Callable[[], TrainBackend]] = {}

@@ -9,7 +9,8 @@ which no card holds: a :class:`Mesh` may be a description without
 devices.  With no device mesh active (one card) nothing is placed:
 :func:`constraint` is the identity, and there is no process group.
 Inside :func:`repro_torch.launch.mesh.device_mesh` a torch ``DeviceMesh``
-of the mesh's shape is active: a tensor's spec becomes DTensor
+of the mesh's shape is active, over a fake group (rank 0's program, a
+trace) or a group of ranks (each rank's own): a tensor's spec becomes DTensor
 placements (:func:`placements`, a mesh axis ``Shard(dim)`` of the tensor
 axis that names it, else ``Replicate()``), :func:`shard_tree` lays a tree
 out on it, and :func:`constraint` redistributes to the named sharding,
@@ -274,25 +275,47 @@ def local(x):
 def distribute(x: torch.Tensor, axes: tuple, make=None):
     """``x`` laid out on the active device mesh by the logical ``axes``:
     a DTensor of ``x``'s global shape whose local shard is
-    ``make(shape, dtype)`` (default: an empty tensor on ``x``'s device;
-    ``x`` itself only gives the shape and dtype).  Non-tensors pass."""
+    ``make(shape, dtype)`` where ``make`` is given (the fake group's
+    trace: rank 0's shard, made for it), else this rank's shard of ``x``
+    itself (:func:`take_shard`; a ``meta`` ``x`` gives an empty one).
+    Non-tensors pass."""
     from torch.distributed.tensor import DTensor
     if not isinstance(x, torch.Tensor):
         return x
     mesh, dm = active_mesh(), active_device_mesh()
     spec = logical_spec(*axes)
-    shape = shard_shape(tuple(x.shape), spec, mesh)
-    loc = (make(shape, x.dtype) if make is not None
-           else torch.empty(shape, dtype=x.dtype, device=x.device))
-    return DTensor.from_local(loc, dm, placements(spec, mesh),
-                              run_check=False, shape=x.shape,
+    pl = placements(spec, mesh)
+    if make is not None:
+        loc = make(shard_shape(tuple(x.shape), spec, mesh), x.dtype)
+    elif x.device.type == "meta":
+        loc = torch.empty(shard_shape(tuple(x.shape), spec, mesh),
+                          dtype=x.dtype, device=x.device)
+    else:
+        loc = take_shard(x, pl, dm)
+    return DTensor.from_local(loc, dm, pl, run_check=False, shape=x.shape,
                               stride=contiguous_strides(x.shape))
+
+
+def take_shard(x: torch.Tensor, pls, dm) -> torch.Tensor:
+    """This rank's shard of the global ``x`` under placements ``pls`` on
+    ``dm``, a contiguous copy (no collective): each mesh axis in order
+    splits the tensor axis its ``Shard`` names into as many chunks as it
+    has devices, as DTensor does (``torch.chunk``'s sizes, the larger
+    chunks first, a chunk past the end empty), and keeps this rank's."""
+    coord = dm.get_coordinate()
+    for m, p in enumerate(pls):
+        if p.is_shard():
+            pieces = torch.chunk(x, dm.shape[m], dim=p.dim)
+            x = (pieces[coord[m]] if coord[m] < len(pieces)
+                 else x.narrow(p.dim, 0, 0))
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def shard_tree(tree: Any, spec_tree: Any, make=None) -> Any:
     """:func:`distribute` over a tree and its logical-axis tree (dicts,
     lists and NamedTuples alike; a leaf whose spec is ``()`` and which
-    is no tensor, a host number, stays as it is)."""
+    is no tensor, a host number, stays as it is).  On a group of ranks
+    each rank calls it with the same global tree and keeps its shards."""
     if _is_spec_leaf(spec_tree):
         return distribute(tree, spec_tree, make)
     if isinstance(spec_tree, dict):
@@ -436,16 +459,28 @@ def mesh_coordinate(logical_axis: str) -> tuple[int, int]:
     return idx, ways
 
 
-def all_reduce(t: torch.Tensor, op: str, logical_axis: str) -> torch.Tensor:
+def all_reduce(t: torch.Tensor, op: str, logical_axis: str, *,
+               grad: str = "sum") -> torch.Tensor:
     """``t`` (a device's local tensor) reduced by ``op`` (``"sum"`` or
     ``"max"``) across the devices that split ``logical_axis``, one
-    functional all-reduce a mesh axis; ``t`` with no device mesh."""
+    functional all-reduce a mesh axis; ``t`` with no device mesh.
+
+    ``grad`` is the backward, which depends on what comes after the
+    reduction (``psum``'s transpose, as JAX's replication checks pick
+    it): ``"sum"`` all-reduces the gradient, right where each device's
+    gradient of the result is its own part (the devices go on to use
+    different slices of it); ``"same"`` passes it through, right where
+    every device computes the same thing from the result, so each holds
+    the whole gradient already (summing it would count it once a
+    device)."""
+    if grad not in ("sum", "same"):
+        raise ValueError(f"grad {grad!r}: 'sum' or 'same'")
     dm = active_device_mesh()
     if dm is None:
         return t
     for d in mesh_axes(logical_axis):
         if dm.shape[d] > 1:
-            t = all_reduce_mesh_dim(t, op, d)
+            t = _AllReduce.apply(t, op, (dm, d), grad)
     return t
 
 
@@ -453,26 +488,58 @@ def all_reduce_mesh_dim(t: torch.Tensor, op: str, mesh_dim: int
                         ) -> torch.Tensor:
     """``t`` (a device's local tensor) reduced by ``op`` across the
     active device mesh's axis ``mesh_dim``."""
-    return _AllReduce.apply(t, op, (active_device_mesh(), mesh_dim))
+    return _AllReduce.apply(t, op, (active_device_mesh(), mesh_dim), "sum")
 
 
 class _AllReduce(torch.autograd.Function):
-    """A functional all-reduce whose gradient is the all-reduced
-    gradient (``psum``'s transpose in the reference's ``shard_map``)."""
+    """A functional all-reduce whose gradient is the all-reduced gradient
+    (``grad="sum"``) or the gradient itself (``"same"``)."""
 
     @staticmethod
-    def forward(ctx, t, op, group):
+    def forward(ctx, t, op, group, grad):
         from torch.distributed._functional_collectives import (all_reduce,
                                                                wait_tensor)
-        ctx.group = group
+        ctx.group, ctx.grad = group, grad
         return wait_tensor(all_reduce(t, op, group))
 
     @staticmethod
     def backward(ctx, grad):
         from torch.distributed._functional_collectives import (all_reduce,
                                                                wait_tensor)
+        if ctx.grad == "same":
+            return grad, None, None, None
         return wait_tensor(all_reduce(grad.contiguous(), "sum",
-                                      ctx.group)), None, None
+                                      ctx.group)), None, None, None
+
+
+def sum_grad(t: torch.Tensor, logical_axis: str) -> torch.Tensor:
+    """``t`` itself, whose gradient is all-reduced (summed) across the
+    devices that split ``logical_axis``: where each of them multiplies
+    ``t`` by its own slice of a weight split on that axis, so each holds
+    a part of ``t``'s gradient (the identity with its all-reduce
+    transpose, the mirror of ``all_reduce(..., grad="same")``).  ``t``
+    with no device mesh."""
+    dm = active_device_mesh()
+    if dm is None:
+        return t
+    for d in mesh_axes(logical_axis):
+        if dm.shape[d] > 1:
+            t = _SumGrad.apply(t, (dm, d))
+    return t
+
+
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed._functional_collectives import (all_reduce,
+                                                               wait_tensor)
+        return wait_tensor(all_reduce(grad.contiguous(), "sum",
+                                      ctx.group)), None
 
 
 def all_gather(t: torch.Tensor, dim: int, logical_axis: str) -> torch.Tensor:

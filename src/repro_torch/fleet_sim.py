@@ -27,6 +27,13 @@ trained on the device; prints test accuracy per round).
 round's whole roster in one ``torch.func.vmap`` call on the device and
 prints how many batched calls that took.
 
+``--dist-backend gloo|nccl`` runs the process as one rank of a group that
+``torchrun`` started (``nccl`` a card a rank; ``gloo`` any layout, ranks
+sharing a card or on the CPU): every rank runs the same deterministic
+orchestrator, ``--train-backend shard`` spreads each batch over the
+ranks, only rank 0 prints, and each arm ends by checking that the final
+global parameters are bitwise equal on every rank.
+
 ``--control static`` runs the ``mudp`` and ``udp`` arms with raw weights
 on the wire.  ``--control adaptive`` runs ``mudp+fec`` with a
 ``delta|ef|topk(0.15)|int8(1024)`` uplink and an ``int8(1024)`` downlink
@@ -51,12 +58,17 @@ card, ``cuda`` raises.
         --model mlp --train-backend vmap --mode sync
     PYTHONPATH=src python -m repro_torch.fleet_sim --device cpu \\
         --model mlp --control adaptive --mode sync
+    PYTHONPATH=src python -m torch.distributed.run --standalone \\
+        --nproc-per-node 2 -m repro_torch.fleet_sim --device cpu \\
+        --model mlp --train-backend shard --dist-backend gloo --mode sync
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
+import io
 import json
 import time
 from typing import Optional
@@ -69,6 +81,7 @@ from repro_torch.core.fleet import (FleetBuild, FleetConfig,
 from repro_torch.core.packetizer import flatten_to_vector
 from repro_torch.core.rounds import FLConfig
 from repro_torch.core.transport import TransportConfig
+from repro_torch.distributed import ranks
 
 N_CLIENTS = 48
 SEED = 7
@@ -518,6 +531,34 @@ def _print_arm(fleet_build: FleetBuild, records: list[dict], *,
               f"({records[-1]['renegotiations']} total)")
 
 
+def _same_on_every_rank(params) -> str:
+    """The parameters' sha256, raising unless every rank of the group
+    holds the same bytes."""
+    import torch.distributed as dist
+    sha = params_sha256(params)
+    shas = [None] * ranks.world_size()
+    dist.all_gather_object(shas, sha)
+    if len(set(shas)) != 1:
+        raise RuntimeError(f"final global parameters differ across the "
+                           f"ranks: sha256 by rank {shas}")
+    return sha
+
+
+def _arm_record(fleet_build: FleetBuild) -> dict:
+    """What ``--out`` keeps of an arm: per round the roster, the arrivals
+    and ``duration_ns``, the batch sizes, and the final global
+    parameters (float32 bytes, hex)."""
+    system = fleet_build.system
+    return {"history": [{"roster": list(r.roster),
+                         "arrived": list(r.arrived),
+                         "duration_ns": r.duration_ns}
+                        for r in system.history],
+            "batch_sizes": (list(fleet_build.trainer.batch_sizes)
+                            if fleet_build.trainer is not None else None),
+            "params_f32": flatten_to_vector(system.global_params).tobytes()
+            .hex()}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mode", default="both",
@@ -540,18 +581,30 @@ def main(argv=None) -> None:
                     choices=["python", "vmap", "shard"],
                     help="how local training executes: per-client loop, "
                          "or one torch.func.vmap call per round on the "
-                         "device (shard: the same on one card)")
+                         "device (shard: the same on one card, spread over "
+                         "the ranks with --dist-backend)")
     ap.add_argument("--control", default="static",
                     choices=["static", "adaptive"],
                     help="static runs mudp and udp; adaptive runs mudp+fec "
                          "and walks each client along the loss-driven "
                          "compression/FEC ladder")
+    ap.add_argument("--transport", default=None,
+                    choices=["mudp", "udp", "mudp+fec"],
+                    help="run this transport's arm alone (default: the "
+                         "control's arms)")
     ap.add_argument("--clients", type=int, default=N_CLIENTS)
     ap.add_argument("--rounds", type=int, default=None,
                     help="rounds (sync) or aggregations (async); default "
                          f"{ROUNDS} / {ASYNC_ROUNDS}")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
+    ap.add_argument("--dist-backend", default=None, choices=ranks.BACKENDS,
+                    help="run as one rank of the group torchrun started, "
+                         "with this backend (nccl: a card a rank)")
+    ap.add_argument("--out", metavar="JSON", default=None,
+                    help="write each arm's rosters, arrivals, duration_ns, "
+                         "batch sizes and final global parameters here "
+                         "(rank 0)")
     ap.add_argument("--profile", metavar="TRACE_JSON", default=None,
                     help="trace the rounds of the first arm on the card "
                          "with torch.profiler, write the chrome trace here "
@@ -562,6 +615,8 @@ def main(argv=None) -> None:
         modes = ["sync"]   # gossip has no server to schedule async rounds
     transports = (("mudp+fec",) if args.control == "adaptive"
                   else ("mudp", "udp"))
+    if args.transport is not None:
+        transports = (args.transport,)
     kw = dict(n_clients=args.clients, model=args.model,
               control=args.control, topology=args.topology,
               cells=args.cells, neighbors=args.neighbors,
@@ -572,15 +627,36 @@ def main(argv=None) -> None:
                                  transport=transports[0], mode=modes[0],
                                  **kw)))
         return
-    for transport in transports:
-        for mode in modes:
-            fleet_build = build(transport, mode=mode, **kw)
-            records = run_rounds(fleet_build,
-                                 args.rounds or rounds_for(mode))
-            _print_arm(fleet_build, records, transport=transport, mode=mode,
-                       topology=args.topology, cells=args.cells,
-                       neighbors=args.neighbors, model=args.model,
-                       train_backend=args.train_backend)
+    group = (ranks.group(args.dist_backend, device_type=torch.device(
+        args.device or _device.default_device()).type)
+        if args.dist_backend else contextlib.nullcontext())
+    with group:
+        lead = ranks.rank() == 0
+        arms = []
+        for transport in transports:
+            for mode in modes:
+                with (contextlib.nullcontext() if lead else
+                      contextlib.redirect_stdout(io.StringIO())):
+                    fleet_build = build(transport, mode=mode, **kw)
+                    records = run_rounds(fleet_build,
+                                         args.rounds or rounds_for(mode))
+                    _print_arm(fleet_build, records, transport=transport,
+                               mode=mode, topology=args.topology,
+                               cells=args.cells, neighbors=args.neighbors,
+                               model=args.model,
+                               train_backend=args.train_backend)
+                if args.dist_backend:
+                    sha = _same_on_every_rank(fleet_build.system
+                                              .global_params)
+                    if lead:
+                        print(f"    [{args.dist_backend}] final global "
+                              f"parameters bitwise equal on "
+                              f"{ranks.world_size()} ranks (sha256 {sha})")
+                arms.append(dict(_arm_record(fleet_build),
+                                 transport=transport, mode=mode))
+        if args.out and lead:
+            with open(args.out, "w") as f:
+                json.dump({"ranks": ranks.world_size(), "arms": arms}, f)
 
 
 if __name__ == "__main__":

@@ -61,7 +61,7 @@ from repro_torch.launch import cost
 from repro_torch.launch.mesh import (device_mesh, make_production_mesh,
                                      mesh_axis_sizes, mesh_name)
 from repro_torch.models import model as M
-from repro_torch.optim import cosine_schedule, make_optimizer
+from repro_torch.optim import TrainState, cosine_schedule, make_optimizer
 from repro_torch.tree import tree_leaves
 
 # NVIDIA's published H100 SXM figures: dense bf16 tensor-core FLOP/s, HBM3
@@ -199,13 +199,20 @@ def _build_step(cfg: ModelConfig, shape: ShapeConfig,
 
 def build_step(cfg: ModelConfig, shape: ShapeConfig, train_cfg: TrainConfig,
                attn_impl: Optional[str] = None,
-               mesh: Optional[sh.Mesh] = None, rules: Optional[dict] = None):
-    """(step, args, specs): the cell's step, its ``meta`` arguments and
-    their logical-axis trees (``sharding.shard_tree`` lays them out on a
-    device mesh); a ``grad_accum=0`` train step's microbatches sized for
-    ``mesh`` under ``rules``."""
+               mesh: Optional[sh.Mesh] = None, rules: Optional[dict] = None,
+               gen: Optional[torch.Generator] = None,
+               device: Optional[torch.device] = None):
+    """(step, args, specs): the cell's step, its arguments and their
+    logical-axis trees (``sharding.shard_tree`` lays them out on a device
+    mesh); a ``grad_accum=0`` train step's microbatches sized for
+    ``mesh`` under ``rules``.  The arguments are ``meta`` stand-ins, or
+    with ``gen`` values drawn from it on ``device`` (:func:`_draw`)."""
     ins = M.input_specs(cfg, shape)
     bspec = M.batch_specs(cfg, shape)
+    if gen is not None:
+        ins = _draw(ins, cfg, gen, device)
+    init = ((lambda: M.init(cfg, gen, device)) if gen is not None
+            else lambda: M.abstract_params(cfg))
     if shape.mode == "train":
         if train_cfg.grad_accum == 0:
             train_cfg = dataclasses.replace(
@@ -218,12 +225,13 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, train_cfg: TrainConfig,
             grad_clip=train_cfg.grad_clip,
             moments_dtype=train_cfg.moments_dtype)
         # The schedule reads the step counter on the host: a number here.
-        state = M.abstract_train_state(cfg, opt)._replace(step=0)
+        params = init()
+        state = TrainState(0, params, opt.init(params))
         step = M.make_train_step(cfg, opt, train_cfg,
                                  attn_impl=attn_impl or "einsum")
         return (step, (state, ins["batch"]),
                 (M.train_state_specs(cfg, opt), bspec["batch"]))
-    params = M.abstract_params(cfg)
+    params = init()
     pspec = M.param_specs(cfg)
     if shape.mode == "prefill":
         return (M.make_prefill_step(cfg, attn_impl=attn_impl or "chunked"),
@@ -238,6 +246,27 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, train_cfg: TrainConfig,
         args += (ins["positions"],)
         specs += (bspec["positions"],)
     return decode, args, specs
+
+
+def _draw(tree, cfg: ModelConfig, gen: torch.Generator,
+          device: Optional[torch.device], key: str = ""):
+    """``meta`` model inputs (:func:`repro_torch.models.model.input_specs`)
+    replaced by values drawn from ``gen`` on ``device``, in tree order:
+    tokens and labels below the vocabulary, M-RoPE positions counting up
+    the sequence, everything floating (caches, frames, vision embeddings)
+    N(0, 1) in its dtype."""
+    if isinstance(tree, dict):
+        return {k: _draw(v, cfg, gen, device, k) for k, v in tree.items()}
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    dims = tuple(tree.shape)
+    if tree.is_floating_point():
+        return torch.randn(dims, generator=gen, device=device).to(tree.dtype)
+    if key == "positions":
+        return torch.arange(dims[-1], dtype=tree.dtype,
+                            device=device).expand(dims).contiguous()
+    return torch.randint(0, cfg.vocab_size, dims, generator=gen,
+                         dtype=tree.dtype, device=device)
 
 
 def _storages(tree) -> dict[int, int]:
@@ -283,24 +312,51 @@ def cell_program(arch: str, shape: Union[str, ShapeConfig], *,
                  train_cfg: Optional[TrainConfig] = None,
                  attn_impl: Optional[str] = None,
                  rules_override: Optional[dict] = None, make=None,
-                 device_type: str = "cuda"):
+                 device_type: str = "cuda", backend: str = "fake",
+                 seed: Optional[int] = None):
     """``with cell_program(...) as (step, args, notes):`` the cell's step
-    and its arguments, the arguments of a mesh's cell laid out as rank 0's
-    shards on a ``DeviceMesh`` over a fake process group (destroyed on
-    exit), with its rules, implicit replication and DTensor active inside
-    the block.  ``make(shape, dtype)`` makes each local shard (default:
-    ``meta``, for a trace; a seeded tensor on the card runs rank 0's
-    program for real) on a mesh of ``device_type`` devices (a ``"cpu"``
-    mesh takes the local shards made on the CPU)."""
+    and its arguments, a mesh's laid out on a ``DeviceMesh`` of
+    ``device_type`` devices (a ``"cpu"`` mesh takes local shards on the
+    CPU) with its rules, implicit replication and DTensor active inside
+    the block.
+
+    ``backend="fake"`` (the trace): the arguments are rank 0's shards on
+    a fake process group (destroyed on exit), each local shard made by
+    ``make(shape, dtype)`` (default: ``meta``, for a trace; a seeded
+    tensor on the card runs rank 0's program for real).
+
+    ``seed``: the global arguments drawn from it (:func:`_draw`, the
+    model's and the optimizer's own init) on the CPU or the current card,
+    the same on every rank.  With no mesh the step is the unsharded one;
+    with ``backend="gloo"`` or ``"nccl"`` each rank of the group it
+    joined (:mod:`repro_torch.distributed.ranks`) keeps its shards of
+    them and runs its own program, whose collectives move data, so the
+    ``full_tensor()`` of its results compares with the unsharded step's.
+    A CUDA mesh over gloo is refused: DTensor's collectives crash there."""
     cfg = cfg or get_config(arch)
     shape = SHAPES[shape] if isinstance(shape, str) else shape
+    if mesh is not None and backend == "gloo" and device_type == "cuda":
+        raise RuntimeError("a step on a CUDA mesh over gloo: DTensor's "
+                           "collectives crash there; use nccl, a card a "
+                           "rank, or a CPU mesh")
+    if make is not None and (seed is not None or backend != "fake"):
+        raise ValueError("make= makes rank 0's shards on the fake group; "
+                         "seed= draws the global arguments")
+    if backend != "fake" and seed is None:
+        raise ValueError(f"backend={backend!r} runs each rank's program on "
+                         f"its shards of the arguments drawn from seed=")
     rules, train_cfg, notes = _cell_settings(arch, cfg, shape, mesh,
                                              train_cfg, rules_override)
+    gen = device = None
+    if seed is not None:
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if device_type == "cuda" else torch.device(device_type))
+        gen = torch.Generator(device=device).manual_seed(seed)
     step, args, specs = build_step(cfg, shape, train_cfg, attn_impl, mesh,
-                                   rules)
+                                   rules, gen, device)
     with contextlib.ExitStack() as stack:
         if mesh is not None:
-            dm = stack.enter_context(device_mesh(mesh, device_type))
+            dm = stack.enter_context(device_mesh(mesh, device_type, backend))
             stack.enter_context(sh.use_mesh(mesh, rules, dm))
             stack.enter_context(_implicit_replication())
             args = sh.shard_tree(args, specs, make)

@@ -6,7 +6,8 @@ says otherwise:
   PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m \
       --smoke --steps 20 --batch 4 --seq 128 --device cpu
 
-``--smoke`` swaps in the reduced same-family config.  The step runs
+``--smoke`` swaps in the reduced same-family config; ``--layers N`` keeps
+the config's width and cuts it to its first N layers.  The step runs
 eagerly (the reference jit-compiles it).  Checkpoints (the reference's
 FLCK container, readable by either package) land in ``--ckpt-dir`` every
 ``--ckpt-every`` steps and at the end, and training resumes from the
@@ -16,6 +17,7 @@ latest checkpoint there automatically (crash-restart story).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -30,10 +32,12 @@ from repro_torch.models import model as M
 from repro_torch.optim import cosine_schedule, make_optimizer
 
 
-def build(arch: str, smoke: bool, train_cfg: TrainConfig):
+def build(arch: str, smoke: bool, train_cfg: TrainConfig, layers: int = 0):
     cfg = get_config(arch)
     if smoke:
         cfg = smoke_variant(cfg)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     opt = make_optimizer(
         train_cfg.optimizer,
         cosine_schedule(train_cfg.learning_rate, train_cfg.warmup_steps,
@@ -68,6 +72,8 @@ def make_batch_fn(cfg, batch, seq, seed=0):
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="yi-9b", choices=ARCH_IDS)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the model to its first N layers (0: all)")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-friendly)")
     ap.add_argument("--steps", type=int, default=50)
@@ -87,7 +93,7 @@ def main(argv: list[str] | None = None) -> None:
     tc = TrainConfig(learning_rate=args.lr, warmup_steps=10,
                      total_steps=args.steps, optimizer=args.optimizer,
                      grad_accum=args.grad_accum, remat_policy="none")
-    cfg, opt = build(args.arch, args.smoke, tc)
+    cfg, opt = build(args.arch, args.smoke, tc, args.layers)
     dev = _device.resolve(args.device)
     step_fn = M.make_train_step(cfg, opt, tc)
     gen = torch.Generator(device=dev).manual_seed(args.seed)

@@ -434,20 +434,24 @@ def _vocab_parallel_nll(logits: torch.Tensor,
     its columns of the vocabulary: the log-sum-exp's max and sum and the
     gold logit (read where the label falls in the device's columns) are
     reduced across the vocabulary shards, the NLL and the token count
-    across the batch shards, so no full-vocabulary row is made."""
+    across the batch shards, so no full-vocabulary row is made.  Every
+    device ends with the same loss, so each reduction's gradient passes
+    through (``grad="same"``)."""
     m = sh.all_reduce(logits.amax(dim=-1, keepdim=True).detach(), "max",
                       "vocab")
     lse = (m + torch.log(sh.all_reduce(
         torch.sum(torch.exp(logits - m), dim=-1, keepdim=True), "sum",
-        "vocab")))[..., 0]
+        "vocab", grad="same")))[..., 0]
     ids = torch.clamp(labels, min=0).long() - \
         sh.mesh_coordinate("vocab")[0] * logits.shape[-1]
     inside = (ids >= 0) & (ids < logits.shape[-1])
     gold = torch.gather(logits, -1, ids.clamp(0, logits.shape[-1] - 1)
                         [..., None])[..., 0]
-    gold = sh.all_reduce(gold * inside.to(gold.dtype), "sum", "vocab")
+    gold = sh.all_reduce(gold * inside.to(gold.dtype), "sum", "vocab",
+                         grad="same")
     mask = (labels >= 0).float()
-    total = sh.all_reduce(torch.sum((lse - gold) * mask), "sum", "batch")
+    total = sh.all_reduce(torch.sum((lse - gold) * mask), "sum", "batch",
+                          grad="same")
     count = sh.all_reduce(torch.sum(mask), "sum", "batch")
     return total / torch.clamp(count, min=1.0)
 

@@ -189,42 +189,46 @@ def _moe_block_ragged(x: torch.Tensor, p: dict,
     rows gathered into a dense (E, cap, d) block, rows past an expert's
     capacity dropped (GShard), the expert products in float32
     (``preferred_element_type``), the rows scattered back and combined.
-    On a device mesh, as the reference's ``shard_map``: each device its
-    own tokens, the router and expert weights split (d over the FSDP
-    axis, F over the ``d_ff`` one), the partial products all-reduced and
-    the outputs' d slices all-gathered (:func:`_ragged_local`)."""
+    On a device mesh each device dispatches its own tokens, as in the
+    reference's ``shard_map``, against the router and expert weights
+    gathered over the FSDP axis (d whole) and split over the ``d_ff``
+    one (:func:`_ragged_local`).  The reference keeps d split over
+    ``data`` and sums the partial products over it, but ``data`` splits
+    the tokens too, so each of its rows sums slices of different
+    devices' tokens; the port gathers the weights, as it does for every
+    other layer."""
     if not sh.is_distributed(x):
         return _ragged_local(x, p["router"], p["we_gate"], p["we_up"],
                              p["we_down"], cfg)
     x = constraint(x, "batch", None, None)    # exit SP once per block
+    w = sh.gather_weights({k: p[k] for k in EXPERT})
     fn = sh.local_map(functools.partial(_ragged_local, cfg=cfg), (
-        ("batch", None, None), ("w_data", None), (None, "w_data", "d_ff"),
-        (None, "w_data", "d_ff"), (None, "d_ff", "w_data")),
+        ("batch", None, None), (None, None), (None, None, "d_ff"),
+        (None, None, "d_ff"), (None, "d_ff", None)),
         ("batch", None, None))
-    return fn(x, p["router"], p["we_gate"], p["we_up"], p["we_down"])
+    return fn(x, w["router"], w["we_gate"], w["we_up"], w["we_down"])
 
 
 def _ragged_local(x, router, we_gate, we_up, we_down, cfg):
     """The dispatch on one device's tokens (B, S, d) and its weight
-    slices: router (d_l, E), gate / up (E, d_l, F_l), down (E, F_l, d_l).
-    With no device mesh d_l = d and F_l = F and every reduction is the
-    identity."""
+    slices: router (d, E), gate / up (E, d, F_l), down (E, F_l, d).
+    With no device mesh F_l = F and every reduction is the identity.
+    Where the mesh splits F (``d_ff``), each device's expert products are
+    its slice's part: the combined token outputs are all-reduced across
+    those devices, and the gradients of the rows and of the combine
+    weights, which each device holds a part of, are summed over them."""
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     B, S, d = x.shape
     T = B * S
     xf = x.reshape(T, d)
-    d_loc = router.shape[0]
-    if d_loc != d:            # this device's slice of d (the reference's)
-        i = sh.mesh_coordinate("w_data")[0]
-        xf = xf[:, i * d_loc:(i + 1) * d_loc]
-    logits = sh.all_reduce(xf.float() @ router.float(), "sum", "w_data")
+    logits = xf.float() @ router.float()
     probs = torch.softmax(logits, dim=-1)
     top_w, top_i = torch.topk(probs, K, dim=-1)
-    top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+    top_w = sh.sum_grad(top_w / top_w.sum(dim=-1, keepdim=True), "d_ff")
     flat_e = top_i.reshape(-1)
     TK = T * K
     order = torch.argsort(flat_e, stable=True)
-    x_sorted = xf[order // K]                                  # (TK, d_l)
+    x_sorted = sh.sum_grad(xf[order // K], "d_ff")             # (TK, d)
     # bincount's length reads the data; E bins are known
     group_sizes = torch.zeros(E, dtype=flat_e.dtype,
                               device=x.device).scatter_add_(
@@ -234,21 +238,19 @@ def _ragged_local(x, router, we_gate, we_up, we_down, cfg):
     slot = torch.arange(cap, device=x.device)
     valid = slot[None, :] < group_sizes[:, None]                 # (E, cap)
     rows = torch.where(valid, starts[:, None] + slot[None, :], TK)
-    x_grp = torch.cat([x_sorted, x_sorted.new_zeros((1, d_loc))])[rows]
-    g = sh.all_reduce(torch.bmm(x_grp.float(), we_gate.float()), "sum",
-                      "w_data")
-    u = sh.all_reduce(torch.bmm(x_grp.float(), we_up.float()), "sum",
-                      "w_data")
+    x_grp = torch.cat([x_sorted, x_sorted.new_zeros((1, d))])[rows]
+    g = torch.bmm(x_grp.float(), we_gate.float())
+    u = torch.bmm(x_grp.float(), we_up.float())
     h = (F.silu(g) * u).to(x.dtype)                            # (E,cap,F_l)
-    o = sh.all_reduce(torch.bmm(h.float(), we_down.float()), "sum",
-                      "d_ff")                                  # (E,cap,d_l)
-    o_sorted = torch.zeros((TK + 1, d_loc), dtype=o.dtype,
+    o = torch.bmm(h.float(), we_down.float())                  # (E,cap,d)
+    o_sorted = torch.zeros((TK + 1, d), dtype=o.dtype,
                            device=x.device).index_add_(
-        0, rows.reshape(-1), o.reshape(-1, d_loc) * valid.reshape(-1, 1))
+        0, rows.reshape(-1), o.reshape(-1, d) * valid.reshape(-1, 1))
     o_tok = torch.einsum("tkd,tk->td",
                          o_sorted[:TK][torch.argsort(order)].reshape(
-                             T, K, d_loc), top_w.to(o.dtype))
-    o_tok = sh.all_gather(o_tok, 1, "w_data")                  # (T, d)
+                             T, K, d), top_w.to(o.dtype))
+    # every device of the d_ff axis goes on with the same sum
+    o_tok = sh.all_reduce(o_tok, "sum", "d_ff", grad="same")
     return o_tok.reshape(B, S, d).to(x.dtype)
 
 

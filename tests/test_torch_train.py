@@ -24,6 +24,8 @@ the dense and ssm losses and train steps, and the training entry point.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -216,6 +218,20 @@ def test_train_entry_point_runs_every_family(arch, capsys):
                 "--grad-accum", "2"])
     out = capsys.readouterr().out
     assert "step     1 loss" in out and out.rstrip().endswith("done")
+
+
+def test_train_entry_point_cuts_depth_only(capsys):
+    """``--layers N`` keeps the config's width and cuts its depth."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import train
+    full, _ = train.build("xlstm-350m", False, TrainConfig())
+    cut, _ = train.build("xlstm-350m", False, TrainConfig(), layers=8)
+    assert cut.num_layers == 8 and full.num_layers == 24
+    assert dataclasses.replace(cut, num_layers=24) == full
+    train.main(["--arch", "xlstm-350m", "--smoke", "--layers", "8",
+                "--steps", "1", "--batch", "2", "--seq", "16", "--device",
+                "cpu", "--log-every", "1"])
+    assert capsys.readouterr().out.rstrip().endswith("done")
 
 
 # --------------------------------------------------------------------------
