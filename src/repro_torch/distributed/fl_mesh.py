@@ -42,6 +42,14 @@ for bit at P = 2 (w = 0.5 is exact) and within a few ulp otherwise.  The
 int8 means differ by up to one ulp at P = 2 as well, where XLA's CPU
 backend contracts the reference's ``q * scale`` into the pod sum (a fused
 multiply-add), which the port's separate dequantize and fold do not.
+
+Under a profiler (:mod:`repro_torch.spans`) a call is one
+``repro_torch.fl_mesh.aggregate`` range, and each leaf of a plain tree
+one range of each of its phases: ``fl_mesh.cast`` (to float32),
+``fl_mesh.codec`` (``int8``: quantize and dequantize), ``fl_mesh.fold``
+(the weights and fedavg), ``fl_mesh.cast_back`` and ``fl_mesh.broadcast``
+(each pod's copy), every device operation of the leaf inside one of them.
+A leaf laid out over ranks records its fold.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ from repro_torch.distributed import ranks
 from repro_torch.distributed.sharding import Mesh, is_distributed, map_specs
 from repro_torch.kernels.fedavg import ops as fedavg_ops
 from repro_torch.kernels.quantize import ops as quant_ops
+from repro_torch.spans import span
 from repro_torch.tree import tree_map
 
 QBLOCK = 1024
@@ -120,9 +129,10 @@ def _fold(vals: torch.Tensor) -> torch.Tensor:
     """The mean of ``vals``' P rows (float32, (P, n)) on the fedavg
     kernel, weights 1/P, in pod order."""
     pods = vals.shape[0]
-    weights = torch.full((pods,), 1.0 / pods, dtype=torch.float32,
-                         device=vals.device)
-    return fedavg_ops.fedavg(vals, weights)
+    with span("fl_mesh.fold"):
+        weights = torch.full((pods,), 1.0 / pods, dtype=torch.float32,
+                             device=vals.device)
+        return fedavg_ops.fedavg(vals, weights)
 
 
 def pod_mean(x: torch.Tensor, mode: str = "exact") -> torch.Tensor:
@@ -135,13 +145,16 @@ def pod_mean(x: torch.Tensor, mode: str = "exact") -> torch.Tensor:
         raise ValueError("a stacked leaf leads with the pod axis")
     pods = x.shape[0]
     if mode == "exact":
-        vals = x.reshape(pods, -1).to(torch.float32).contiguous()
+        with span("fl_mesh.cast"):
+            vals = x.reshape(pods, -1).to(torch.float32).contiguous()
     else:
         _has_rows(x)
         d = x.shape[-1]
-        rows = x.to(torch.float32).reshape(-1, d).contiguous()
-        q, scale = quant_ops.quantize(rows, d)
-        vals = quant_ops.dequantize(q, scale, d, d).view(pods, -1)
+        with span("fl_mesh.cast"):
+            rows = x.to(torch.float32).reshape(-1, d).contiguous()
+        with span("fl_mesh.codec"):
+            q, scale = quant_ops.quantize(rows, d)
+            vals = quant_ops.dequantize(q, scale, d, d).view(pods, -1)
     return _fold(vals).view(x.shape[1:])
 
 
@@ -214,9 +227,13 @@ def make_fl_aggregate(mesh: Mesh, *, mode: str = "exact",
                                       x.device_mesh, x.placements,
                                       run_check=False, shape=x.shape,
                                       stride=x.stride())
-        return pod_mean(x, mode).to(x.dtype).unsqueeze(0).expand(
-            x.shape).contiguous()
+        mean = pod_mean(x, mode)
+        with span("fl_mesh.cast_back"):
+            mean = mean.to(x.dtype)
+        with span("fl_mesh.broadcast"):
+            return mean.unsqueeze(0).expand(x.shape).contiguous()
 
     def agg(stacked):
-        return tree_map(leaf, stacked)
+        with span("fl_mesh.aggregate"):
+            return tree_map(leaf, stacked)
     return agg

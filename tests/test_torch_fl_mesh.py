@@ -42,6 +42,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.distributed import fl_mesh as ref_fl  # noqa: E402
+from repro_torch import spans  # noqa: E402
 from repro_torch.distributed import fl_mesh  # noqa: E402
 from repro_torch.kernels.fedavg import ops as fedavg_ops  # noqa: E402
 from repro_torch.kernels.quantize import ops as quant_ops  # noqa: E402
@@ -52,6 +53,12 @@ LEAVES = {"bias": ((37,), "float32"), "norm": ((1600,), "bfloat16"),
           "w": ((5, 64), "bfloat16"), "proj": ((3, 4, 300), "float32"),
           "emb": ((11, 1025), "float32")}
 ULPS = 4
+#: each leaf's phase spans, in order
+PHASES = {"exact": ("cast", "fold", "cast_back", "broadcast"),
+          "int8": ("cast", "codec", "fold", "cast_back", "broadcast")}
+#: aten ops a call makes outside every phase that do no device work: the
+#: fold's result viewed back to the leaf's shape
+NO_WORK = {"aten::view"}
 
 _REFERENCE = textwrap.dedent("""
     import os, sys
@@ -249,3 +256,60 @@ def test_stacking_helpers():
     assert st["a"][1, 0, 0] == 0.0 and x["a"][0, 0] == 0.0
     assert fl_mesh.stacked_specs({"w": ("w_data", None), "n": (None,)}) == \
         ref_fl.stacked_specs({"w": ("w_data", None), "n": (None,)})
+
+
+def _stacked(pods: int = 2) -> dict:
+    return {k: torch.from_numpy(v).to(getattr(torch, LEAVES[k][1]))
+            for k, v in make_tree(pods).items()}
+
+
+def _profiled(agg, tree):
+    """``agg(tree)`` under a CPU profile: (the aggregate, every host event
+    as (name, start ns, end ns), by start)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = agg(tree)
+    events = sorted(((e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+                     for e in prof.profiler.kineto_results.events()),
+                    key=lambda e: e[1])
+    return out, events
+
+
+@pytest.mark.parametrize("mode", fl_mesh.MODES)
+def test_spans_cover_every_phase_of_every_leaf(mode):
+    tree = _stacked()
+    _, events = _profiled(
+        fl_mesh.make_fl_aggregate(fl_mesh.client_mesh(), mode=mode), tree)
+    ranges = [e for e in events if e[0].startswith(spans.PREFIX)]
+    aggs = [e for e in ranges if e[0] == spans.PREFIX + "fl_mesh.aggregate"]
+    assert len(aggs) == 1
+    _, a0, a1 = aggs[0]
+    phases = [e for e in ranges if e not in aggs]
+    # each leaf: one range of each of its mode's phases, in order
+    assert [n for n, _, _ in phases] == [
+        spans.PREFIX + "fl_mesh." + p for p in PHASES[mode]] * len(tree)
+    assert all(a0 <= s and e <= a1 for _, s, e in phases)
+    # every op inside the call that would work on a card lies in a phase
+    work = [e for e in events if e[0].startswith("aten::")
+            and a0 <= e[1] <= a1 and e[0] not in NO_WORK]
+    assert {n for n, _, _ in work} >= {"aten::copy_", "aten::fill_"}
+    outside = [n for n, s, e in work
+               if not any(ps <= s and e <= pe for _, ps, pe in phases)]
+    assert outside == []
+
+
+@pytest.mark.parametrize("mode", fl_mesh.MODES)
+def test_spans_are_a_shared_no_op_without_a_profiler(monkeypatch, mode):
+    tree = _stacked()
+    agg = fl_mesh.make_fl_aggregate(fl_mesh.client_mesh(), mode=mode)
+    traced, _ = _profiled(agg, tree)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a range was made with no profiler running")
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", refuse)
+    assert spans.span("fl_mesh.cast") is spans.span("fl_mesh.aggregate")
+    plain = agg(tree)
+    for k in tree:
+        assert torch.equal(plain[k].view(torch.uint8),
+                           traced[k].view(torch.uint8)), k
