@@ -17,7 +17,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
    from a same-size ``copy_`` measured here, and the time of one PyTorch
    call computing the same function where there is one (for dequantize
    a per-channel quantized tensor's ``.dequantize()``, held bitwise and
-   timed over back-to-back calls, since no CUDA graph captures it).  The
+   timed over back-to-back calls, since no CUDA graph captures it).
+   fedavg's pod route (``cast_to``) is held at its edges (POD_EDGES) and
+   timed at the benchmark's largest leaves beside the cast, fold, cast
+   back and broadcast it replaces (POD_TIMED).  The
    top-k scatter and dequantize are also held at their edge cases:
    unordered rows and duplicates over many tiles beside increasing ones,
    one tile, K = 0, widths off the 16-byte grid, 70,000 rows and bad
@@ -809,6 +812,7 @@ def check_kernels(parent: ParentKernels | None = None):
     rows: dict[str, dict[str, dict]] = {}   # name -> shape name -> rec
     record = recorder(rows)
     check_fedavg(dev, record)
+    check_fedavg_pods(dev)
     check_quantize(dev, record, parent)
     check_quantize_edges(dev)
     check_dequantize_edges(dev)
@@ -908,6 +912,77 @@ def check_fedavg(dev, record) -> None:
     say("  fedavg edges (1, 2048), (1, 7), (3, 7), (5, 1), (300, 2048) one "
         "and four floats into a buffer, (2, 0): kernel == plain == numpy "
         "fold, one launch (none at N = 0)")
+
+
+#: fedavg's pod route at its edges: (stack dtype, cast_to, K, N, offset in
+#: elements of the stack's base into its buffer); N odd folds every column
+#: alone, an offset of one a head, vectors and a tail; the last is past
+#: 2^31 bytes
+POD_EDGES = [("bfloat16", "bfloat16", 4, 1001, 0),
+             ("bfloat16", "bfloat16", 4, 4096, 1),
+             ("float16", "float16", 3, 4096, 1),
+             ("float32", "float32", 2, 4099, 0),
+             ("float32", "bfloat16", 4, 4096, 1),
+             ("float32", "bfloat16", 2, 1001, 0),
+             ("bfloat16", "float32", 5, 4096, 1),
+             ("bfloat16", "bfloat16", 33, 2048, 0),
+             ("bfloat16", "bfloat16", 2, (1 << 30) + 3, 0)]
+#: the pod route timed against the chain it replaces (cast, fold, cast
+#: back, broadcast) at the benchmark's largest leaves: hymba-1.5b's w_gate
+#: over 4 pods and olmoe-1b-7b's we_down (8 of 16 layers) over 2, bf16
+POD_TIMED = {"hymba w_gate (4, 281804800)": (4, 281_804_800),
+             "olmoe we_down (2, 1073741824)": (2, 1_073_741_824)}
+
+
+def check_fedavg_pods(dev) -> None:
+    """fedavg's pod route (``cast_to``) bitwise against its plain version
+    on the card at POD_EDGES, one launch under its own count each; then
+    its device time at POD_TIMED beside the chain's and the bytes'
+    bound."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.fedavg import ops as fedavg_ops
+    from repro_torch.kernels.fedavg import ref as fedavg_ref
+    gen = torch.Generator(device=dev).manual_seed(32)
+    for src, dst, k, n, offset in POD_EDGES:
+        dtype, cast_to = getattr(torch, src), getattr(torch, dst)
+        buf = torch.randn(k * n + offset, generator=gen, device=dev)
+        stack = buf.to(dtype)[offset:].view(k, n)
+        del buf
+        w = torch.rand(k, generator=gen, device=dev) + 0.5
+        w /= w.sum()
+        before = kernels.launch_counts["fedavg_pods"]
+        got = fedavg_ops.fedavg(stack, w, cast_to=cast_to)
+        launched = kernels.launch_counts["fedavg_pods"] - before
+        want = fedavg_ref.fedavg(stack, w, cast_to=cast_to)
+        bits = torch.int16 if got.element_size() == 2 else torch.int32
+        if not (got.shape == want.shape and launched == 1
+                and torch.equal(got.view(bits), want.view(bits))):
+            raise AssertionError(f"fedavg pod route {src} -> {dst} "
+                                 f"({k}, {n}) offset {offset}: kernel != "
+                                 f"plain, or {launched} launches")
+        del stack, got, want
+    torch.cuda.empty_cache()
+    say(f"  fedavg pod route edges {json.dumps(POD_EDGES)}: kernel == "
+        f"plain, one launch each")
+
+    def chain(stack, w):
+        mean = fedavg_ops.fedavg(stack.to(torch.float32).contiguous(), w)
+        return mean.to(stack.dtype).unsqueeze(0).expand(
+            stack.shape).contiguous()
+    for label, (k, n) in POD_TIMED.items():
+        stack = torch.empty((k, n), dtype=torch.bfloat16, device=dev)
+        stack.normal_(generator=gen)
+        w = torch.full((k,), 1.0 / k, device=dev)
+        route = device_ms_events(
+            lambda: fedavg_ops.fedavg(stack, w, cast_to=stack.dtype), 3)
+        old = device_ms_events(lambda: chain(stack, w), 3)
+        bound, _ = bound_ms(4 * k * n + 4 * k, 2 * k * n)
+        say(f"  fedavg pod route {label} bf16: device {route:.6f} ms "
+            f"({bound / route:.3f} of the {bound:.6f} ms bound); the chain "
+            f"it replaces {old:.6f} ms ({old / route:.2f}x)")
+        del stack
+        torch.cuda.empty_cache()
 
 
 def _dequantize_library(q, scales, n: int, block: int, want):
@@ -3988,11 +4063,11 @@ def _timed_kernel_ms(mode: str, stacked, quantize=None) -> dict:
     events = {"fedavg": [], "quantize": [], "dequantize": []}
 
     def timed(name, fn):
-        def call(*args):
+        def call(*args, **kwargs):
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = fn(*args)
+            out = fn(*args, **kwargs)
             stop.record()
             events[name].append((start, stop))
             return out
@@ -4053,8 +4128,9 @@ def run_pod_aggregation(dev: str = "cuda", cfg=None, parent=None) -> dict:
     after, the FL kernels' calls counted by shape).  Holds: every leaf
     bitwise equal to the same aggregation through the plain versions on
     the card, every pod identical, the int8 float32 means within the
-    codec's absmax / 254 of the exact ones a row, and fedavg (both modes),
-    quantize and dequantize (int8) launched."""
+    codec's absmax / 254 of the exact ones a row, and fedavg (both modes,
+    once a leaf by its pod route), quantize and dequantize (int8)
+    launched."""
     import torch
     from repro_torch import kernels
     from repro_torch.configs import get_config
@@ -4080,12 +4156,18 @@ def run_pod_aggregation(dev: str = "cuda", cfg=None, parent=None) -> dict:
                          for x in leaves.values()),
             "int8": per_pod + 4 * rows}
     # each kernel's (bytes, operations), summed over the leaves: inputs
-    # read once and outputs written once (float32 stacks and means, int8
-    # codes, a scale a row); fedavg a multiply and an add a stacked value,
-    # quantize an absmax and a divide, dequantize a multiply
+    # read once and outputs written once (fedavg's pod route reads the
+    # leaf's dtype in exact, float32 in int8, and writes every pod's copy
+    # in the leaf's dtype, beside the weights; int8 codes, a scale a row);
+    # fedavg a multiply and an add a stacked value, quantize an absmax and
+    # a divide, dequantize a multiply
     stacked_n = POD_COUNT * per_pod
-    kernel_work = {"fedavg": (4 * stacked_n + 4 * per_pod, 2 * stacked_n),
-                   "quantize": (5 * stacked_n + 4 * POD_COUNT * rows,
+    copies = sum(x.numel() * x.element_size() for x in leaves.values())
+    fedavg_bytes = {"exact": 2 * copies,
+                    "int8": 4 * stacked_n + copies}
+    fedavg_bytes = {mode: b + 4 * POD_COUNT * len(leaves)
+                    for mode, b in fedavg_bytes.items()}
+    kernel_work = {"quantize": (5 * stacked_n + 4 * POD_COUNT * rows,
                                 2 * stacked_n),
                    "dequantize": (5 * stacked_n + 4 * POD_COUNT * rows,
                                   stacked_n)}
@@ -4108,11 +4190,14 @@ def run_pod_aggregation(dev: str = "cuda", cfg=None, parent=None) -> dict:
         peak = torch.cuda.max_memory_allocated() / 1e9
         by_shape = {name: dict(c.most_common())
                     for name, c in counters.items() if c}
-        want = ({"fedavg"} if mode == "exact"
-                else {"fedavg", "quantize", "dequantize"})
-        if set(launches) != want:
+        want = ({"fedavg", "fedavg_pods"} if mode == "exact"
+                else {"fedavg", "fedavg_pods", "quantize", "dequantize"})
+        if (set(launches) != want
+                or launches["fedavg_pods"] != len(leaves)
+                or launches["fedavg"] != len(leaves)):
             raise AssertionError(f"pod aggregation {mode}: launches "
-                                 f"{launches}, want each of {sorted(want)}")
+                                 f"{launches}, want each of {sorted(want)}, "
+                                 f"fedavg one a leaf by its pod route")
         got_leaves = dict(named_leaves(result))
         say(f"  {mode}: {wall:.6f} s wall (ending in a synchronize); "
             f"launches {json.dumps(launches)}; calls by shape "
@@ -4144,7 +4229,8 @@ def run_pod_aggregation(dev: str = "cuda", cfg=None, parent=None) -> dict:
         torch.cuda.empty_cache()
         timed = _timed_kernel_ms(mode, stacked)
         kernel_ms = {}
-        for name in sorted(want):
+        kernel_work["fedavg"] = (fedavg_bytes[mode], 2 * stacked_n)
+        for name in sorted(want - {"fedavg_pods"}):
             ms, n = timed[name]
             nbytes, flops = kernel_work[name]
             bound, by = bound_ms(nbytes, flops)
@@ -4905,7 +4991,10 @@ def run_bench_harness() -> dict:
     fails = bench_run.failures(rows) + off_route(rows)
     if rc != 0:
         fails.append(f"bench_run.main returned {rc}")
-    never = [name for name in kernels.launch_counts if not launches.get(name)]
+    # fedavg's pod route has a count of its own, and the harness runs no
+    # pod aggregation
+    never = [name for name in kernels.launch_counts
+             if name != "fedavg_pods" and not launches.get(name)]
     if never:
         fails.append(f"kernels never launched by the harness: {never}")
     t_held = time.perf_counter()

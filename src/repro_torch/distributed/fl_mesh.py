@@ -6,17 +6,21 @@ Each pod is one FL client; its model copy is the leading dimension of a
 stacked parameter tree.  One FL round's aggregation is paper Eq. (1) /
 FedAvg across that axis, every pod ending with the aggregate:
 
- * ``exact`` — the float32 mean over the pods, cast back to the leaf's
+ * ``exact`` — the float32 mean over the pods, rounded to the leaf's
    dtype.  Each leaf's (P, n) view folds on the **fedavg kernel** with
-   weights 1/P.
+   weights 1/P, read in the leaf's own dtype.
  * ``int8`` — the compressed exchange: each pod's copy is quantized
    *row-wise* (absmax over the last axis: ``scale = max(absmax, 1e-12) /
    127``, ``q = clip(rint(x / scale), -127, 127)``), dequantized
    (``q * scale``) and averaged over the pods.  The codec runs on the
    **quantize** and **dequantize kernels** (one block a row, the leaf's
-   last axis) over the (P * rows, d) view, the mean on fedavg.  Its error
-   against ``exact`` is at most ``absmax / 254`` a row, the largest over
-   the pods.
+   last axis) over the (P * rows, d) view of the leaf cast to float32,
+   the mean on fedavg.  Its error against ``exact`` is at most ``absmax /
+   254`` a row, the largest over the pods.
+
+In a tree of plain tensors the fold of a leaf is one fedavg launch (its
+pod route) that rounds the mean to the leaf's dtype and writes it into
+every pod's row of the result, each pod's copy its own storage.
 
 Over a group of ranks (:mod:`repro_torch.distributed.ranks`) the stacked
 tree is laid out with its pod axis split over the mesh's ``pod`` axis, as
@@ -45,15 +49,16 @@ multiply-add), which the port's separate dequantize and fold do not.
 
 Under a profiler (:mod:`repro_torch.spans`) a call is one
 ``repro_torch.fl_mesh.aggregate`` range, and each leaf of a plain tree
-one range of each of its phases: ``fl_mesh.cast`` (to float32),
-``fl_mesh.codec`` (``int8``: quantize and dequantize), ``fl_mesh.fold``
-(the weights and fedavg), ``fl_mesh.cast_back`` and ``fl_mesh.broadcast``
-(each pod's copy), every device operation of the leaf inside one of them.
-A leaf laid out over ranks records its fold.
+one range of each of its phases: ``int8``'s ``fl_mesh.cast`` (to
+float32) and ``fl_mesh.codec`` (quantize and dequantize), then
+``fl_mesh.fold`` (the weights and fedavg, which writes every pod's copy),
+every device operation of the leaf inside one of them.  A leaf laid out
+over ranks records its fold; :func:`pod_mean` its cast too.
 """
 
 from __future__ import annotations
 
+from contextvars import ContextVar
 from typing import Any, Optional, Sequence
 
 import torch
@@ -67,6 +72,13 @@ from repro_torch.tree import tree_map
 
 QBLOCK = 1024
 MODES = ("exact", "int8")
+#: the dtype :func:`_fold` rounds the mean to, writing every pod's copy
+#: (set around a plain-tree leaf's fold); None: the float32 mean alone.
+#: Set beside the call, not passed, so that ``_fold(vals)`` keeps its one
+#: argument: ``portbench``'s fault tests put a one-argument fold (half the
+#: pods) in its place.
+_fold_into: ContextVar[Optional[torch.dtype]] = ContextVar("fold_into",
+                                                           default=None)
 
 
 def client_mesh(devices: Optional[Sequence[torch.device]] = None) -> Mesh:
@@ -126,13 +138,33 @@ def _has_rows(x) -> None:
 
 
 def _fold(vals: torch.Tensor) -> torch.Tensor:
-    """The mean of ``vals``' P rows (float32, (P, n)) on the fedavg
-    kernel, weights 1/P, in pod order."""
+    """The mean of ``vals``' P pods ((P, ...), flattened to (P, n)) on the
+    fedavg kernel, weights 1/P, in pod order: float32 (n,), or where
+    :data:`_fold_into` is set every pod's copy rounded to it, (P, n)."""
     pods = vals.shape[0]
     with span("fl_mesh.fold"):
         weights = torch.full((pods,), 1.0 / pods, dtype=torch.float32,
                              device=vals.device)
-        return fedavg_ops.fedavg(vals, weights)
+        return fedavg_ops.fedavg(vals.reshape(pods, -1).contiguous(),
+                                 weights, cast_to=_fold_into.get())
+
+
+def _stacked(x: torch.Tensor) -> int:
+    """The pod count of stacked leaf ``x``."""
+    if x.dim() < 1:
+        raise ValueError("a stacked leaf leads with the pod axis")
+    return x.shape[0]
+
+
+def _dequantized(x: torch.Tensor) -> torch.Tensor:
+    """The row-wise int8 round trip of stacked leaf ``x``, float32 (P, n)."""
+    _has_rows(x)
+    d = x.shape[-1]
+    with span("fl_mesh.cast"):
+        rows = x.to(torch.float32).reshape(-1, d).contiguous()
+    with span("fl_mesh.codec"):
+        q, scale = quant_ops.quantize(rows, d)
+        return quant_ops.dequantize(q, scale, d, d).view(x.shape[0], -1)
 
 
 def pod_mean(x: torch.Tensor, mode: str = "exact") -> torch.Tensor:
@@ -141,21 +173,27 @@ def pod_mean(x: torch.Tensor, mode: str = "exact") -> torch.Tensor:
     (``int8``); shape ``x.shape[1:]``, before any cast back."""
     if mode not in MODES:
         raise ValueError(mode)
-    if x.dim() < 1:
-        raise ValueError("a stacked leaf leads with the pod axis")
-    pods = x.shape[0]
+    pods = _stacked(x)
     if mode == "exact":
         with span("fl_mesh.cast"):
             vals = x.reshape(pods, -1).to(torch.float32).contiguous()
     else:
-        _has_rows(x)
-        d = x.shape[-1]
-        with span("fl_mesh.cast"):
-            rows = x.to(torch.float32).reshape(-1, d).contiguous()
-        with span("fl_mesh.codec"):
-            q, scale = quant_ops.quantize(rows, d)
-            vals = quant_ops.dequantize(q, scale, d, d).view(pods, -1)
+        vals = _dequantized(x)
     return _fold(vals).view(x.shape[1:])
+
+
+def _aggregate_leaf(x: torch.Tensor, mode: str) -> torch.Tensor:
+    """Every pod's copy of the aggregate of stacked leaf ``x``, in its
+    dtype: its values (``exact``) or their int8 round trip folded by one
+    fedavg launch, which rounds the mean and writes the P copies."""
+    _stacked(x)
+    vals = x if mode == "exact" else _dequantized(x)
+    token = _fold_into.set(x.dtype)
+    try:
+        copies = _fold(vals)
+    finally:
+        _fold_into.reset(token)
+    return copies.view((-1,) + tuple(x.shape[1:]))
 
 
 def _pod_mean_ranks(x, mesh: Mesh, mode: str,
@@ -227,11 +265,7 @@ def make_fl_aggregate(mesh: Mesh, *, mode: str = "exact",
                                       x.device_mesh, x.placements,
                                       run_check=False, shape=x.shape,
                                       stride=x.stride())
-        mean = pod_mean(x, mode)
-        with span("fl_mesh.cast_back"):
-            mean = mean.to(x.dtype)
-        with span("fl_mesh.broadcast"):
-            return mean.unsqueeze(0).expand(x.shape).contiguous()
+        return _aggregate_leaf(x, mode)
 
     def agg(stacked):
         with span("fl_mesh.aggregate"):

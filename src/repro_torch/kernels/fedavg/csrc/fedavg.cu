@@ -43,8 +43,29 @@
 //         same ring, one commit group a stage.
 //   Weights travel with the rows, chunk by chunk, so any K works: a
 //   60,000-client fold has 240 KB of weights, more than shared memory.
+//
+// A fourth route, pods (fedavg_pods below, its own entry point), serves the
+// pod aggregation (distributed/fl_mesh.py): every pod's copy of the mean of
+// a short stack (K = the pods) of up to 1.1 G columns a leaf, in the leaf's
+// own dtype:
+//
+//   out[k, n] = round(sum_j w[j] * float(x[j, n]))  for each k
+//       x: (K, N) f32, bf16 or f16; out: (K, N) f32, bf16 or f16
+//
+// the same fold as above, rounded once to nearest even (as a cast does),
+// in place of a cast to f32, the fold, a cast back and a broadcast copy.
+// Bound by bytes: each thread owns a 16-byte vector of columns (8 of a
+// 2-byte type, 4 floats), issues that vector's loads from every row of a
+// chunk (K <= 32 at once) before its first add, and stores the rounded
+// vector K times with streaming stores (nothing reads the copies again in
+// the round).  64-bit indices; a grid of one thread a vector.  Columns
+// before the first 16-byte vector (a base off the grid) and after the
+// last, or all of them where rows do not share an alignment (N not a
+// multiple of the vector), fold one a thread.
 
 #include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -327,7 +348,195 @@ int launch_tall_tile(int route, int tile, const float* x, const float* w, float*
   }
 }
 
+// The pod route's element types: the bits each value is stored in, widened
+// to float exactly and rounded back to nearest even.
+struct F32 {
+  using Bits = float;
+  __device__ static float widen(float b) { return b; }
+  __device__ static float narrow(float v) { return v; }
+};
+struct Bf16 {
+  using Bits = unsigned short;
+  __device__ static float widen(unsigned short b) {
+    return __bfloat162float(__ushort_as_bfloat16(b));
+  }
+  __device__ static unsigned short narrow(float v) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  }
+};
+struct F16 {
+  using Bits = unsigned short;
+  __device__ static float widen(unsigned short b) { return __half2float(__ushort_as_half(b)); }
+  __device__ static unsigned short narrow(float v) {
+    return __half_as_ushort(__float2half_rn(v));
+  }
+};
+enum PodType { kF32 = 0, kBf16 = 1, kF16 = 2 };
+
+constexpr int kPodThreads = 256;
+
+// The access that moves B bytes: n words of type T.
+template <int B>
+struct Word {
+  using T = uint4;
+  static constexpr int n = B / 16;
+};
+template <>
+struct Word<8> {
+  using T = uint2;
+  static constexpr int n = 1;
+};
+template <>
+struct Word<4> {
+  using T = unsigned int;
+  static constexpr int n = 1;
+};
+template <>
+struct Word<2> {
+  using T = unsigned short;
+  static constexpr int n = 1;
+};
+
+// W neighbouring values, moved as Word's accesses.
+template <typename B, int W>
+union Pack {
+  using Wd = Word<static_cast<int>(sizeof(B)) * W>;
+  B v[W];
+  typename Wd::T w[Wd::n];
+};
+
+template <typename B, int W>
+__device__ __forceinline__ Pack<B, W> load_pack(const B* p) {
+  using Wd = typename Pack<B, W>::Wd;
+  Pack<B, W> r;
+#pragma unroll
+  for (int i = 0; i < Wd::n; ++i) r.w[i] = __ldg(reinterpret_cast<const typename Wd::T*>(p) + i);
+  return r;
+}
+
+template <typename B, int W>
+__device__ __forceinline__ void store_pack(B* p, const Pack<B, W>& v) {
+  using Wd = typename Pack<B, W>::Wd;
+#pragma unroll
+  for (int i = 0; i < Wd::n; ++i) __stcs(reinterpret_cast<typename Wd::T*>(p) + i, v.w[i]);
+}
+
+// Columns n .. n + W - 1: every row's values loaded, R rows at a time,
+// before the chunk's first add; folded in row order; rounded; stored in
+// every row.
+template <typename In, typename Out, int R, int W>
+__device__ __forceinline__ void fold_pods(const typename In::Bits* __restrict__ x,
+                                          const float* __restrict__ w,
+                                          typename Out::Bits* __restrict__ out, int K, int64_t N,
+                                          int64_t n) {
+  float acc[W];
+#pragma unroll
+  for (int c = 0; c < W; ++c) acc[c] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += R) {
+    Pack<typename In::Bits, W> v[R];
+    float wk[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      if (k0 + j < K) {
+        v[j] = load_pack<typename In::Bits, W>(x + static_cast<int64_t>(k0 + j) * N + n);
+        wk[j] = __ldg(w + k0 + j);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      if (k0 + j < K)
+#pragma unroll
+        for (int c = 0; c < W; ++c)
+          acc[c] = __fadd_rn(acc[c], __fmul_rn(wk[j], In::widen(v[j].v[c])));
+  }
+  Pack<typename Out::Bits, W> o;
+#pragma unroll
+  for (int c = 0; c < W; ++c) o.v[c] = Out::narrow(acc[c]);
+  for (int k = 0; k < K; ++k)
+    store_pack<typename Out::Bits, W>(out + static_cast<int64_t>(k) * N + n, o);
+}
+
+// vecs vectors of V columns from column head on, then the other N - V * vecs
+// columns one a thread: the head's, then the tail's.
+template <typename In, typename Out, int R>
+__global__ void __launch_bounds__(kPodThreads)
+fedavg_pods_kernel(const typename In::Bits* __restrict__ x, const float* __restrict__ w,
+                   typename Out::Bits* __restrict__ out, int K, int64_t N, int64_t head,
+                   int64_t vecs) {
+  constexpr int V = 16 / static_cast<int>(sizeof(typename In::Bits));
+  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  for (int64_t i = t; i < vecs; i += step) fold_pods<In, Out, R, V>(x, w, out, K, N, head + i * V);
+  const int64_t body = head + vecs * V;
+  for (int64_t i = t; i < N - vecs * V; i += step)
+    fold_pods<In, Out, R, 1>(x, w, out, K, N, i < head ? i : body + (i - head));
+}
+
+// One thread a vector (a column where it folds alone): at the benchmark's
+// largest leaves a grid that covers the work ran at 0.87-0.89 of the
+// bytes' bound, a grid of the CTAs the card holds at once, each striding
+// over many vectors, at 0.81-0.84.
+template <typename In, typename Out, int R>
+int launch_pods_rows(const typename In::Bits* x, const float* w, typename Out::Bits* out, int K,
+                     int64_t N, int64_t head, int64_t vecs, cudaStream_t st) {
+  constexpr int V = 16 / static_cast<int>(sizeof(typename In::Bits));
+  const int64_t scalars = N - vecs * V;
+  const int64_t need = ((vecs > scalars ? vecs : scalars) + kPodThreads - 1) / kPodThreads;
+  const unsigned blocks = static_cast<unsigned>(need < INT32_MAX ? need : INT32_MAX);
+  fedavg_pods_kernel<In, Out, R><<<blocks, kPodThreads, 0, st>>>(x, w, out, K, N, head, vecs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename In, typename Out>
+int launch_pods(const void* x, const float* w, void* out, int K, long long N, long long head,
+                long long vecs, int rows, cudaStream_t st) {
+  using BI = typename In::Bits;
+  using BO = typename Out::Bits;
+  constexpr int V = 16 / static_cast<int>(sizeof(BI));
+  const auto* xi = static_cast<const BI*>(x);
+  auto* oo = static_cast<BO*>(out);
+  // a vector's loads and stores need every row's column `head` on their grid
+  if (head < 0 || vecs < 0 || head + vecs * V > N ||
+      (vecs > 0 && (N % V != 0 || reinterpret_cast<uintptr_t>(xi + head) % 16 != 0 ||
+                    reinterpret_cast<uintptr_t>(oo + head) % (V * sizeof(BO)) != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (rows) {
+    case 2: return launch_pods_rows<In, Out, 2>(xi, w, oo, K, N, head, vecs, st);
+    case 4: return launch_pods_rows<In, Out, 4>(xi, w, oo, K, N, head, vecs, st);
+    case 8: return launch_pods_rows<In, Out, 8>(xi, w, oo, K, N, head, vecs, st);
+    case 32: return launch_pods_rows<In, Out, 32>(xi, w, oo, K, N, head, vecs, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename In>
+int launch_pods_to(int out_type, const void* x, const float* w, void* out, int K, long long N,
+                   long long head, long long vecs, int rows, cudaStream_t st) {
+  switch (out_type) {
+    case kF32: return launch_pods<In, F32>(x, w, out, K, N, head, vecs, rows, st);
+    case kBf16: return launch_pods<In, Bf16>(x, w, out, K, N, head, vecs, rows, st);
+    case kF16: return launch_pods<In, F16>(x, w, out, K, N, head, vecs, rows, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
+
+// The pod route: x (K, N) of in_type, out (K, N) of out_type (PodType
+// codes); head, vecs and rows from ops.pod_plan.
+extern "C" int fedavg_pods(const void* x, const void* w, void* out, int in_type, int out_type,
+                           int K, long long N, long long head, long long vecs, int rows,
+                           void* stream) {
+  if (K <= 0 || N <= 0) return 0;
+  const auto* wf = static_cast<const float*>(w);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (in_type) {
+    case kF32: return launch_pods_to<F32>(out_type, x, wf, out, K, N, head, vecs, rows, st);
+    case kBf16: return launch_pods_to<Bf16>(out_type, x, wf, out, K, N, head, vecs, rows, st);
+    case kF16: return launch_pods_to<F16>(out_type, x, wf, out, K, N, head, vecs, rows, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 // route: 0 wide (tile: 8 to 256 threads, one a column, a CTA; stage
 // unused), 1 tma, 2 cp_async (tile C = 8, 16, 32, 64 columns a CTA with

@@ -162,6 +162,116 @@ def test_fedavg_rejects_bad_inputs():
         port_agg.fedavg_stack(np.zeros((2, 4), np.float32), None, "auto")
 
 
+# The pod route (``cast_to``): every row's copy of the fold, rounded once
+# to the leaf's dtype, as fl_mesh's plain-tree leaves take it.
+POD_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
+
+
+def _pod_stack(k: int, n: int, dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """A (k, n) stack in ``dtype`` and normalized float32 weights."""
+    stack, weights = _stack(k, n)
+    w = np.asarray(weights, np.float32)
+    return (torch.from_numpy(stack * 4).to(dtype),
+            torch.from_numpy(w / w.sum()))
+
+
+def _pod_chain(stack, w, cast_to):
+    """The chain the pod route replaces: the cast to float32, the default
+    fold, the cast back and the broadcast copy."""
+    mean = fedavg_ops.fedavg(stack.to(torch.float32).contiguous(), w)
+    return mean.to(cast_to).unsqueeze(0).expand(stack.shape).contiguous()
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    view = {2: torch.int16, 4: torch.int32}
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.view(view[a.element_size()]), b.view(view[b.element_size()])))
+
+
+@pytest.mark.parametrize("n", [1001, 1024])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 33])
+@pytest.mark.parametrize("dtype", POD_DTYPES, ids=str)
+def test_fedavg_pod_route_is_the_cast_fold_cast_back_broadcast_chain(
+        dtype, k, n):
+    """On the CPU the wrapper's plain version is bitwise the chain, and
+    the chain's mean is the numpy fold of the widened values."""
+    stack, w = _pod_stack(k, n, dtype)
+    got = fedavg_ops.fedavg(stack, w, cast_to=dtype)
+    assert _same_bits(got, _pod_chain(stack, w, dtype))
+    assert _same_bits(fedavg_ref.fedavg(stack, w, cast_to=dtype), got)
+    acc = np.zeros(n, np.float32)
+    for wi, row in zip(w.numpy(), stack.to(torch.float32).numpy()):
+        acc += wi * row
+    assert _same_bits(got[k - 1].clone(), torch.from_numpy(acc).to(dtype))
+    # a float32 stack rounds to each narrower dtype as the int8 fold does
+    if dtype != torch.float32:
+        f32 = stack.to(torch.float32)
+        assert _same_bits(fedavg_ops.fedavg(f32, w, cast_to=dtype),
+                          _pod_chain(f32, w, dtype))
+
+
+@pytest.mark.parametrize("k,n", [(1, 7), (4, 1600), (2, 25450), (33, 2048)])
+def test_fedavg_default_call_is_unchanged_beside_the_pod_route(k, n):
+    """Without ``cast_to`` the call still takes a float32 stack to its
+    float32 (N,) mean, bitwise the host fold, by the routes of ``plan``."""
+    stack, weights = _stack(k, n)
+    w = np.asarray(weights, np.float32)
+    w = torch.from_numpy(w / w.sum())
+    x = torch.from_numpy(stack)
+    out = fedavg_ops.fedavg(x, w)
+    assert out.shape == (n,) and out.dtype == torch.float32
+    assert _same_bits(out, fedavg_ops.fedavg(x, w, cast_to=None))
+    acc = np.zeros(n, np.float32)
+    for wi, row in zip(w.numpy(), stack):
+        acc += wi * row
+    np.testing.assert_array_equal(_bits(out.numpy()), _bits(acc))
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("n", [1, 7, 8, 16, 1001, 1024, 5504, (1 << 30) + 3,
+                               (1 << 30) + 8])
+def test_fedavg_pod_plan_covers_each_column_once_on_the_grid(n, itemsize):
+    """Vectors of 16 bytes from the first column on the grid, in every row,
+    where rows share an alignment (n a multiple of the vector); every
+    other column alone; each column exactly once."""
+    v = 16 // itemsize
+    for base in range(0, 16, itemsize):
+        p = fedavg_ops.pod_plan(4, n, itemsize, 4096 + base)
+        assert p.rows == 4
+        head = -base % 16 // itemsize
+        if n % v or n - head < v:
+            assert (p.head, p.vecs) == (0, 0)
+        else:
+            assert (p.head, p.vecs) == (head, (n - head) // v)
+            assert (base + p.head * itemsize) % 16 == 0
+        if n > 1 << 20:
+            continue
+        # the kernel's columns: vectors from the head on, then the head's
+        # and the tail's columns one each
+        seen = np.zeros(n, np.int64)
+        end = p.head + p.vecs * v
+        seen[p.head:end] += 1
+        seen[:p.head] += 1
+        seen[end:] += 1
+        assert (seen == 1).all() and end <= n
+    rows = [fedavg_ops.pod_plan(k, 64, 2, 0).rows
+            for k in (1, 2, 3, 4, 5, 8, 9, 32, 33, 60_000)]
+    assert rows == [2, 2, 4, 4, 8, 8, 32, 32, 32, 32]
+
+
+def test_fedavg_pod_route_rejects_what_it_cannot_cast():
+    w = torch.full((2,), 0.5)
+    with pytest.raises(ValueError, match="casts to"):
+        fedavg_ops.fedavg(torch.zeros(2, 4), w, cast_to=torch.int8)
+    with pytest.raises(ValueError, match="bfloat16 or float16"):
+        fedavg_ops.fedavg(torch.zeros(2, 4, dtype=torch.float64), w,
+                          cast_to=torch.float32)
+    with pytest.raises(ValueError, match="2-D float32"):
+        fedavg_ops.fedavg(torch.zeros(2, 4, dtype=torch.bfloat16), w)
+    with pytest.raises(ValueError, match="weights"):
+        fedavg_ops.fedavg(torch.zeros(2, 4), w[:1], cast_to=torch.float32)
+
+
 # --------------------------------------------------------------------------
 # quantize / dequantize
 # --------------------------------------------------------------------------
@@ -685,3 +795,43 @@ def test_cuda_kernels_match_plain_versions_bitwise():
         out = quant_ops.dequantize(q, s, x.shape[1], block).cpu()
         assert torch.equal(out.view(torch.int32), quant_ref.dequantize(
             q_ref, s_ref, x.shape[1], block).view(torch.int32))
+
+
+# The pod route on the card: odd N (every column alone), a base one element
+# off the 16-byte grid (a head, vectors and a tail), each pair of dtypes
+# the pod aggregation makes, K past one chunk of rows, and a bf16 stack
+# past 2^31 bytes (64-bit indices).
+POD_CARD_CASES = [(torch.bfloat16, torch.bfloat16, 4, 1001, 0),
+                  (torch.bfloat16, torch.bfloat16, 4, 4096, 1),
+                  (torch.float16, torch.float16, 3, 4096, 1),
+                  (torch.float32, torch.float32, 2, 4099, 0),
+                  (torch.float32, torch.bfloat16, 4, 4096, 1),
+                  (torch.float32, torch.bfloat16, 2, 1001, 0),
+                  (torch.bfloat16, torch.float32, 5, 4096, 1),
+                  (torch.bfloat16, torch.bfloat16, 33, 2048, 0),
+                  (torch.bfloat16, torch.bfloat16, 2, (1 << 30) + 3, 0)]
+
+
+@pytest.mark.parametrize("dtype,cast_to,k,n,offset", POD_CARD_CASES)
+def test_fedavg_pod_route_on_the_card(dtype, cast_to, k, n, offset):
+    """The pod route's kernel bitwise against its plain version on the
+    card, one launch under its own count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs these checks "
+                    "on the card")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(k * n + offset)
+    buf = torch.empty(k * n + offset, dtype=dtype, device=dev)
+    buf.copy_(torch.randn(k * n + offset, generator=gen, device=dev))
+    stack = buf[offset:].view(k, n)
+    assert (stack.data_ptr() % 16 != 0) == bool(offset)
+    w = torch.rand(k, generator=gen, device=dev) + 0.5
+    w /= w.sum()
+    before = (kernels.launch_counts["fedavg"],
+              kernels.launch_counts["fedavg_pods"])
+    got = fedavg_ops.fedavg(stack, w, cast_to=cast_to)
+    assert (kernels.launch_counts["fedavg"],
+            kernels.launch_counts["fedavg_pods"]) == (before[0] + 1,
+                                                      before[1] + 1)
+    want = fedavg_ref.fedavg(stack, w, cast_to=cast_to)
+    assert _same_bits(got, want)
