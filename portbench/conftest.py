@@ -8,6 +8,9 @@ from pathlib import Path
 
 import pytest
 
+# the whole-benchmark checks assert outside a test module
+pytest.register_assert_rewrite("portbench.contract")
+
 HERE = Path(__file__).resolve().parent
 
 #: a tree with a 16-wide, a 64-wide and a >8,192-wide leaf (quantize's

@@ -1,5 +1,5 @@
 """The benchmark harness: find a cell's files by name, run its step kind
-in a closed loop for a window, and reduce the run to one result.
+round after round for a window, and reduce the run to one result.
 
 A cell is ``workloads/<cell>.json``: its configuration, its traffic,
 the chips it takes, why it exists, the limits of its comparison and the
@@ -9,7 +9,9 @@ precision of its control.  The harness finds the rest by name:
 * ``traffic/<traffic>.json``: the traffic's parameters, among them the
   step kind;
 * ``steps/<step>.py``: the step kind, a class ``Step`` (see
-  ``steps/fl_aggregate.py`` for what it offers);
+  ``steps/fl_aggregate.py`` for what it offers) and ``CHECKS``, the
+  names of the numbers its comparison reads, which are the keys of the
+  cell's limits;
 * ``metrics/<metric>.py``: a per-layer metric's reader, ``read(trace)``
   over a :class:`portbench.trace.Trace`, returning a number or None where
   it finds nothing to read; ``CALLS``, the wrappers whose calls in one
@@ -22,6 +24,7 @@ cell reports.  Nothing here names a cell.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import importlib.util
 import json
@@ -38,6 +41,9 @@ HERE = Path(__file__).resolve().parent
 #: top-level modules that may not be loaded in the process that prints a
 #: result: JAX and the JAX package the port was made from
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
+#: seconds of rounds, at the warm-up's pace, that the window may send
+#: ahead of the oldest round it waits for
+AHEAD_S = 4.0
 
 
 def load_json(root: Path, kind: str, name: str) -> dict:
@@ -69,6 +75,11 @@ class Cell:
         self.traffic = load_json(root, "traffic", self.spec["traffic"])
         self.step_kind = load_module(root, "steps", self.traffic["step"])
         self.limits: dict = dict(self.spec["limits"])
+        if set(self.limits) != set(self.step_kind.CHECKS):
+            raise ValueError(f"cell {self.name!r} limits "
+                             f"{sorted(self.limits)} but its step kind "
+                             f"{self.traffic['step']!r} compares "
+                             f"{sorted(self.step_kind.CHECKS)}")
 
     def correct(self, checks: dict) -> bool:
         """Whether a comparison's readings are each within the cell's
@@ -121,9 +132,9 @@ def forbidden_modules() -> list[str]:
 
 
 class Device:
-    """The waits and clocks of the device the run uses: on a card, a
-    synchronize and CUDA events around each round; on the CPU, nothing
-    to wait for and no device clock."""
+    """The waits and clocks of the device the run uses: on a card, CUDA
+    events around each round and a synchronize; on the CPU, nothing to
+    wait for and no device clock."""
 
     def __init__(self, device: str):
         import torch
@@ -150,11 +161,20 @@ class Device:
 
 
 def _window(step, dev: Device, seconds: float, judged: int,
-            annotate=None) -> tuple[int, float, list[float]]:
-    """Rounds back to back until ``seconds`` have passed and a round on
-    input tree ``judged`` has ended: (rounds, window seconds, each
-    round's device milliseconds)."""
-    device_ms = []
+            annotate=None, ahead: int = 1
+            ) -> tuple[int, float, list[float]]:
+    """Rounds sent back to back until ``seconds`` have passed and a round
+    on input tree ``judged`` has been sent; then nothing more is sent, the
+    device finishes all that was, and the clock is read after that wait:
+    (rounds, window seconds, each round's device milliseconds).
+
+    No round waits for the one before it: the device runs them in order
+    on one stream while the host sends the next, so that a host that
+    stands still for a while leaves the device work to do.  At most
+    ``ahead`` rounds are in flight; the host waits for the oldest one
+    beyond that."""
+    rounds = []
+    in_flight: collections.deque = collections.deque()
     start = time.perf_counter()
     i = 0
     while True:
@@ -162,19 +182,24 @@ def _window(step, dev: Device, seconds: float, judged: int,
             ev0 = dev.event()
             step.run(i)
             ev1 = dev.event()
-            dev.sync()
-        end = time.perf_counter()
-        if ev0 is not None:
-            device_ms.append(ev0.elapsed_time(ev1))
         i += 1
-        if end - start >= seconds and (i - 1) % step.n_inputs == judged:
-            return i, end - start, device_ms
+        if ev1 is not None:
+            rounds.append((ev0, ev1))
+            in_flight.append(ev1)
+            while len(in_flight) > ahead:
+                in_flight.popleft().synchronize()
+        if (time.perf_counter() - start >= seconds
+                and (i - 1) % step.n_inputs == judged):
+            break
+    dev.sync()
+    end = time.perf_counter()
+    return i, end - start, [a.elapsed_time(b) for a, b in rounds]
 
 
 def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
         bench: dict, root: Path = HERE, device: str = "cuda",
         t0: Optional[float] = None, chips: int = 1) -> dict:
-    """One run of a cell: set-up, a closed-loop window of ``seconds``,
+    """One run of a cell: set-up, a window of ``seconds`` of rounds,
     the comparison, and the result as the benchmark prints it.  On a CPU
     device the same loop runs (a rehearsal) and the result carries no
     metric and no device reading."""
@@ -197,14 +222,20 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
     # a traced run records the wrapper calls of its last warm-up round,
     # so that nothing is wrapped around the calls of the traced rounds
     targets = [t for r in readers.values() for t in getattr(r, "CALLS", ())]
+    # each warm-up round waits for the device, and the fastest one sets
+    # how many rounds the window may send ahead
     warm = step.warm_rounds()
+    fastest = math.inf
     for i in range(warm - 1):
+        t = time.perf_counter()
         step.run(i)
         dev.sync()
+        fastest = min(fastest, time.perf_counter() - t)
     with tr.Capture(targets) as capture:
         step.run(warm - 1)
         dev.sync()
     calls = dict(capture.calls)
+    ahead = max(2, math.ceil(AHEAD_S / fastest)) if fastest > 0 else 2
     setup_s = time.perf_counter() - t0
     phases["warm"] = setup_s
     print(f"portbench: set-up of {cell_name} (s from start): " + ", ".join(
@@ -221,7 +252,8 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
             prof = stack.enter_context(profile(
                 activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
         rounds, window_s, device_ms = _window(
-            step, dev, seconds, judged, tr.annotate if trace else None)
+            step, dev, seconds, judged, tr.annotate if trace else None,
+            ahead)
 
     result = {"correct": False, "attempted": rounds, "failed": 0,
               "metrics": {}, "device": {"platform": "cpu", "count": 0}}

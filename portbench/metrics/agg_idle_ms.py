@@ -1,7 +1,7 @@
 """``agg_idle_ms``: device-idle milliseconds a round in the gaps that
 begin while the host is inside a ``fl_mesh.aggregate`` span: the device
 waiting on the program to issue its next operation, not on the harness
-(the synchronize at a round's end, the next round's start)."""
+(the harness between rounds, the window's closing wait)."""
 
 from portbench import spans
 

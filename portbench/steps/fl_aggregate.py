@@ -8,9 +8,10 @@ trees the window alternates over, the values' distribution and the
 warm-up rounds.  Each tree is drawn from the seed on the device: every
 leaf a base of N(0, ``base_std``) plus each pod's own N(0, ``pod_std``),
 in float32, then cast to the leaf's dtype.  A round is one call on the
-next tree; the harness waits for the device after it.  A round's output
-is released before the next round starts, so the last round's output is
-the one left to judge.
+next tree; the harness sends the next round without waiting for the
+device, which runs them in order on one stream.  A round's output is
+released before the next round starts (the allocator reuses it in the
+stream's order), so the last round's output is the one left to judge.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import torch
 from portbench import work
 from portbench.reference import fl_aggregate as reference
 
+#: the comparison's numbers, as ``judge()`` names them
+CHECKS = ("mismatch_share", "max_gap_ulp")
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
           "float32": torch.float32}
 
@@ -97,7 +100,9 @@ class Step:
         self.out = reference.aggregate(self.inputs[self.last], self.mode,
                                        arith=arith)
 
-    def round_work(self) -> tuple[int, int]:
-        """The round's least bytes and operations (the mean's operations
-        are negligible beside the bytes)."""
-        return work.round_bytes(leaf_operands(self.config), self.pods), 0
+    def round_work(self) -> tuple[int, int, float]:
+        """The round's least bytes and operations, and the peak those
+        operations run at: the mean's float32 adds, which are negligible
+        beside the bytes, so the round is bytes-bound."""
+        return (work.round_bytes(leaf_operands(self.config), self.pods), 0,
+                work.PEAK_F32_FLOPS)

@@ -1,8 +1,8 @@
-"""A run whose timed path is broken underneath comes out not correct: the
-harness's look for a card is skipped (the run is on the CPU) and the rest
-of a run is driven, once for each fault a cell of this benchmark can
-have.  (A one-process aggregation has no exchange between chips to
-leave out.)"""
+"""A run of step kind ``fl_aggregate`` whose timed path is broken
+underneath comes out not correct: the harness's look for a card is
+skipped (the run is on the CPU) and the rest of a run is driven, once for
+each fault a cell of this step kind can have.  (A one-process aggregation
+has no exchange between chips to leave out.)"""
 
 import json
 from pathlib import Path
@@ -71,9 +71,14 @@ def test_broken_round_is_not_correct(tiny, monkeypatch, fault, pods, mode):
 
 
 def committed_cells():
-    """Every committed cell file: (cell, pods, mode, limits, control)."""
+    """Every committed cell file of step kind ``fl_aggregate``: (cell,
+    pods, mode, limits, control)."""
     out = []
     for path in sorted((Path(harness.HERE) / "workloads").glob("*.json")):
+        spec = json.loads(path.read_text())
+        if harness.load_json(harness.HERE, "traffic", spec["traffic"])[
+                "step"] != "fl_aggregate":
+            continue
         cell = harness.Cell(path.stem)
         out.append((cell.name, int(cell.config["pods"]),
                     cell.traffic["mode"], cell.limits, cell.spec["control"]))

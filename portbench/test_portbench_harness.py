@@ -6,12 +6,13 @@ import os
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import pytest
 import torch
 
-from portbench import harness, trace
+from portbench import contract, harness, trace
 
 HERE = Path(__file__).resolve().parent
 
@@ -44,10 +45,70 @@ def test_window_ends_on_the_seeds_input(tiny):
         assert step.last == seed % step.n_inputs
 
 
+class _Log:
+    """A device that records, in order, what the window does with it:
+    rounds sent, waits on a round's closing event, and the synchronize."""
+
+    class Event:
+        def __init__(self, log, n):
+            self.log, self.n = log, n
+
+        def synchronize(self):
+            self.log.append(("wait", self.n))
+
+        def elapsed_time(self, other):
+            return float(other.n - self.n)
+
+    class Step:
+        n_inputs = 2
+
+        def __init__(self, log):
+            self.log = log
+
+        def run(self, i):
+            self.log.append(("run", i))
+
+    def __init__(self, stall_s=0.0):
+        self.log, self.stall_s, self.made = [], stall_s, 0
+
+    def event(self):
+        self.made += 1
+        return self.Event(self.log, self.made)
+
+    def sync(self):
+        time.sleep(self.stall_s)
+        self.log.append(("sync",))
+
+
+@pytest.mark.parametrize("ahead", [1, 3])
+def test_window_sends_ahead_and_waits_at_its_close(ahead):
+    dev = _Log(stall_s=0.05)
+    step = _Log.Step(dev.log)
+    dev.log = step.log
+    rounds, window_s, device_ms = harness._window(step, dev, 0.02, 1,
+                                                  ahead=ahead)
+    log = dev.log
+    sent = [e[1] for e in log if e[0] == "run"]
+    assert sent == list(range(rounds)) and (rounds - 1) % 2 == 1
+    # no round waits on the device but for the one ``ahead`` rounds back
+    # (its closing event is the round's second), and the window ends in
+    # one synchronize, after the last round is sent
+    waits = [e[1] for e in log if e[0] == "wait"]
+    assert waits == [2 * (r + 1) for r in range(rounds - ahead)]
+    for k, e in enumerate(log):
+        if e[0] == "run" and e[1] >= ahead:
+            assert log[k + 1] == ("wait", 2 * (e[1] - ahead + 1))
+    assert log[-1] == ("sync",) and log.count(("sync",)) == 1
+    # the clock is read after that wait: a stall there counts
+    assert window_s >= 0.05
+    assert device_ms == [1.0] * rounds
+
+
 def test_finds_a_new_cell_config_step_and_metric_by_name(tiny):
     root, name, bench = tiny(2, "int8")
     # a new step kind and a new traffic that names it
     (root / "steps" / "fl_aggregate_twice.py").write_text(
+        "from portbench.steps.fl_aggregate import CHECKS\n"
         "from portbench.steps.fl_aggregate import Step as Base\n\n\n"
         "class Step(Base):\n"
         "    def run(self, i):\n"
@@ -75,7 +136,8 @@ def test_finds_a_new_cell_config_step_and_metric_by_name(tiny):
                       device="cpu")
     assert res["correct"] is True
     _, layer = harness.cell_metrics(bench, "new.cell")
-    assert [m["name"] for m in layer] == ["rounds_seen"]
+    # its own metric, and those of any step kind, which list no cells
+    assert {m["name"] for m in layer} == {*contract.ANY_STEP, "rounds_seen"}
     reader = harness.load_module(root, "metrics", "rounds_seen")
     t = trace.Trace(3, 0, 10, [], [], {}, None)
     assert reader.read(t) == 3.0
@@ -95,15 +157,10 @@ def test_cell_must_agree_with_benchmark_json(tiny):
 
 
 def test_cell_metrics_follow_benchmark_json(bench):
-    for w in bench["workloads"]:
-        e2e, layer = harness.cell_metrics(bench, w["name"])
-        assert {m["name"] for m in e2e} == {"step_ms", "step_p95_ms",
-                                            "setup_s"}
-        names = {m["name"] for m in layer}
-        assert {"step_mfu", "agg_copy_ms", "launches_per_round",
-                "fedavg_roofline", "idle_share"} <= names
-        codec = {"quantize_roofline", "dequantize_roofline"}
-        assert (codec <= names) == (w["traffic"] == "int8")
+    """Every cell reports the end-to-end metrics and the per-layer metrics
+    of any step kind; an ``fl_aggregate`` cell the pod aggregation's, and
+    the codec's where its traffic is ``int8``."""
+    contract.cell_reports(HERE.parent, bench)
 
 
 def test_p95_is_the_nearest_rank():

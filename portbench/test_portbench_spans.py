@@ -9,8 +9,11 @@ from portbench.test_portbench_trace import (HERE, Event, FakeProfile,
 
 US = 1_000  # ns
 ROUND_US = 4_000
-READERS = ("cast_ms", "broadcast_ms", "cast_back_ms", "agg_host_ms",
-           "agg_idle_ms")
+READERS = ("cast_ms", "agg_host_ms", "agg_idle_ms")
+#: spans the port no longer opens, which no metric reads: read here by
+#: the pairing itself, under the names their readers had
+SPANS = {"broadcast_ms": "fl_mesh.broadcast",
+         "cast_back_ms": "fl_mesh.cast_back"}
 COPY = "void at::native::unrolled_elementwise_kernel<direct_copy>(int)"
 
 
@@ -81,8 +84,11 @@ def t():
 
 
 def read_all(t):
-    return {name: harness.load_module(HERE, "metrics", name).read(t)
-            for name in READERS}
+    got = {name: harness.load_module(HERE, "metrics", name).read(t)
+           for name in READERS}
+    got.update({name: spans.span_device_ms(t, span)
+                for name, span in SPANS.items()})
+    return got
 
 
 def test_readers(t):
@@ -90,11 +96,30 @@ def test_readers(t):
     assert got["cast_ms"] == pytest.approx(1.0)
     assert got["broadcast_ms"] == pytest.approx(0.1 + 0.7)
     assert got["cast_back_ms"] == pytest.approx(0.1)
-    assert got["agg_host_ms"] == pytest.approx(3.0)
+    # 3 ms inside ``aggregate`` less its nine 10 us launch calls
+    assert got["agg_host_ms"] == pytest.approx(3.0 - 0.09)
     # only the 60 us inside the broadcast: the gap before each round's
     # first operation begins outside every span, the one after its last
     # in the harness's synchronize
     assert got["agg_idle_ms"] == pytest.approx(0.06)
+
+
+def test_agg_host_ms_leaves_out_a_launch_that_waits():
+    """A round sent ahead: its one launch call waits 2.5 ms for room in
+    the launch queue, inside a 3 ms ``aggregate``, and the profiler
+    records the wait inside it; the program's own host time is the other
+    0.5 ms."""
+    t = reduce([
+        Event(trace.ROUND, False, 0, ROUND_US * US, "user_annotation"),
+        span("fl_mesh.aggregate", 100, 3100),
+        span("fl_mesh.fold", 200, 2900),
+        Event("cudaLaunchKernel", False, 300 * US, 2500 * US,
+              "cuda_runtime"),
+        Event("Command Buffer Full", False, 400 * US, 2300 * US,
+              "overhead"),
+        op("void fedavg_pods_kernel(float const*)", 2800, 3800)])
+    assert harness.load_module(HERE, "metrics", "agg_host_ms").read(t) == \
+        pytest.approx(0.5)
 
 
 def test_pairing(t):
@@ -142,15 +167,16 @@ def test_a_count_mismatch_gives_no_pairing():
     got = read_all(t)
     assert got["cast_ms"] is None and got["broadcast_ms"] is None
     assert got["cast_back_ms"] is None
-    # the host's figures need no pairing
-    assert got["agg_host_ms"] == pytest.approx(3.0)
+    # the host's figures need no pairing (the second round has eight
+    # launch calls)
+    assert got["agg_host_ms"] == pytest.approx(3.0 - (0.09 + 0.08) / 2)
     assert got["agg_idle_ms"] == pytest.approx(0.06)
 
 
 def test_nothing_to_read_without_program_spans():
     t = reduce(two_rounds())
     assert spans.launched(t) is None and spans.gaps(t) is None
-    assert read_all(t) == dict.fromkeys(READERS)
+    assert read_all(t) == dict.fromkeys((*READERS, *SPANS))
 
 
 def test_launch_names():

@@ -20,7 +20,7 @@ class FakeStep:
     """A step whose round moves 3.35 GB at least (1 ms at the peak)."""
 
     def round_work(self):
-        return int(3.35e9), 0
+        return int(3.35e9), 0, work.PEAK_F32_FLOPS
 
 
 class Event:
@@ -103,6 +103,23 @@ def test_reduce_window_busy_and_ops(t):
     assert t.busy_s == pytest.approx(0.008)
     assert len(t.device_ops) == 8  # the gpu annotations are no operations
     assert t.gaps()[:2] == [(0, MS // 2), (4 * MS + MS // 2, 5 * MS + MS // 2)]
+
+
+def test_window_ends_with_the_work_sent_ahead():
+    """Rounds sent ahead: the host's two rounds take 1 ms each, and the
+    device runs each round's 3 ms kernel after the one before; the window
+    ends with the second kernel, at 7 ms, and nothing in it is idle but
+    the first millisecond."""
+    ev = []
+    for r in range(2):
+        ev += [Event(trace.ROUND, False, r * MS, MS, "user_annotation"),
+               Event("fedavg_pods_kernel", True, MS + 3 * r * MS, 3 * MS,
+                     "kernel")]
+    t = trace.reduce(FakeProfile(ev), {}, FakeStep())
+    assert (t.start_ns, t.end_ns, t.rounds) == (0, 7 * MS, 2)
+    assert t.window_s == pytest.approx(0.007)
+    assert t.busy_s == pytest.approx(0.006)
+    assert t.gaps() == [(0, MS)]
 
 
 def test_readers(t, bench):

@@ -113,3 +113,20 @@ def test_bound():
     assert work.bound_s(int(3.35e12), 0) == (1.0, "bytes")
     assert work.bound_s(0, int(67e12)) == (1.0, "operations")
     assert work.operand(torch.zeros(2, 3)) == work.Operand((2, 3), 4)
+
+
+def test_bound_at_the_bf16_peak():
+    """Operations on the tensor cores in bf16, at the data sheet's dense
+    989 TFLOP/s: 989e12 of them take a second, as 67e12 do at the float32
+    peak that a call takes where it names none."""
+    assert work.PEAK_BF16_FLOPS == 989e12
+    assert work.bound_s(0, int(989e12), work.PEAK_BF16_FLOPS) == (
+        1.0, "operations")
+    seconds, which = work.bound_s(0, int(989e12))
+    assert seconds == pytest.approx(989 / 67) and which == "operations"
+    # an 8192 x 4096 x 4096 bf16 matmul: 2.75e11 operations, 167.8 MB
+    flops, nbytes = 2 * 8192 * 4096 * 4096, 2 * (2 * 8192 * 4096 + 4096 ** 2)
+    assert work.bound_s(nbytes, flops, work.PEAK_BF16_FLOPS) == (
+        flops / 989e12, "operations")
+    assert work.bound_s(nbytes, 0, work.PEAK_BF16_FLOPS) == (
+        nbytes / 3.35e12, "bytes")

@@ -111,8 +111,8 @@ def short_name(name: str) -> str:
 
 class Trace:
     """What one traced window holds: ``rounds`` whole rounds between
-    ``start_ns`` and ``end_ns`` (the first round's start and the last
-    one's end, on the profiler's clock), the device operations inside it,
+    ``start_ns`` and ``end_ns`` (the first round's start and the end of the
+    last round's work, on the profiler's clock), the device operations inside it,
     the host's events, the calls of one round, and the step that ran."""
 
     def __init__(self, rounds: int, start_ns: int, end_ns: int,
@@ -206,8 +206,11 @@ def reduce(prof, calls: dict, step) -> Trace:
                 rounds.append((start, end))
     if not rounds:
         raise RuntimeError("the traced window holds no round")
+    # the window runs from the first round's start on the host to the end
+    # of the last round's work, on the device where the host sent it ahead
     start = min(a for a, _ in rounds)
-    end = max(b for _, b in rounds)
+    end = max([b for _, b in rounds]
+              + [op.end_ns for op in device_ops if op.start_ns >= start])
     inside = [Op(op.name, max(op.start_ns, start), min(op.end_ns, end))
               for op in device_ops if op.end_ns > start and op.start_ns < end]
     host_ops.sort(key=lambda op: op.start_ns)

@@ -1,6 +1,7 @@
 """The yardstick's arithmetic: the H100's published peaks, the least time a
-piece of work can take on it, the bytes and operations of each FL kernel
-call, and the least bytes of one FL aggregation round.
+piece of work can take on it (at the peak its operations run at), the
+bytes and operations of each FL kernel call, and the least bytes of one FL
+aggregation round.
 
 A call's bytes are counted from the shapes and dtypes of its own tensor
 arguments and results: every input byte read once and every output byte
@@ -17,9 +18,11 @@ import re
 from typing import NamedTuple, Sequence
 
 #: NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 outside the tensor
-#: cores, device memory
+#: cores, dense bf16 on the tensor cores (1,979e12 with sparsity), device
+#: memory
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 HBM_BYTES = 80e9
 
 #: the FL kernels' device names, as the profiler shows them
